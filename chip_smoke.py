@@ -5,15 +5,19 @@
 
 1. Prints the card (`nvidia-smi` name and power limit) and builds every
    CUDA kernel from `wsi_hgnn_tpu_torch/csrc` with nvcc for sm_90a, one
-   nvcc per source, all at once.
+   nvcc per source, all at once; prints the bf16 DenseNet kernels' blocks
+   per SM and shared memory (`--ptxas` adds nvcc's register report).
 2. Kernel phases: each kernel against its plain PyTorch version at the
-   main path's shapes, with the tolerance printed beside the error.
+   main path's shapes (the bf16 dense layer at all 58 layers of a
+   128-patch chunk), with the tolerance printed beside the error.
 3. The slice: `SlidePredictor` at the width of
    configs/BRCA/HEAT4_kimia_classification.yml, pixels in (KimiaNet
    features + HoVer-Net typing, bf16), exact KNN + Pearson lattice,
    HEAT4, softmax; requests of 2048, 1000 and 300 patches. The kernel
    launch counters are zeroed just before and read just after.
-4. Timing lines (CUDA events per kernel launch, host clock per stage),
+4. Timing lines (CUDA events per kernel launch, one line per main-path
+   shape: each dense block, each transition, with ms/launch, bound and
+   share of the bound; host clock per stage),
    and a torch.profiler pass over the last request: the device's busy
    share and the kernels that took the most device time.
 
@@ -97,7 +101,7 @@ BLOCKS = ((64, 64, 6), (32, 128, 12), (16, 256, 24), (8, 512, 16))  # (H, ch_in,
 CHUNK = 128
 
 
-def knn_phase(torch, kn, dev, gen):
+def knn_phase(torch, kn, dev, gen, card):
     """Exact-arithmetic inputs (small integers: every product and sum is
     exact in f32, so any summation order gives the same bits) with planted
     duplicate rows (exact ties) and a padding mask: indices and distances
@@ -133,23 +137,26 @@ def knn_phase(torch, kn, dev, gen):
     b_ms, b_by = bound(n * d * 4 + n * 4 + n * 8 * 8, 2.0 * n * n * d + 3 * n * d,
                        "float32")
     return dict(max_abs_err=worst, ms=ms, plain_ms=plain, bound_ms=b_ms,
-                bound_by=b_by)
+                bound_by=b_by, per_shape=[shape_line(
+                    "knn_l2_fused", f"N={n} D={d} k=8", 1, ms,
+                    [(b_ms, b_by)], card)])
 
 
 def layer_operands(torch, dev, gen, h, c_end, k_in, dtype):
-    """Random operands of one dense layer at activation scale ~1."""
-    x = torch.zeros(CHUNK, h, h, c_end)
-    x[..., :k_in] = torch.randn(CHUNK, h, h, k_in, generator=gen)
-    a1 = torch.zeros(1, c_end)
-    b1 = torch.zeros(1, c_end)
-    a1[0, :k_in] = torch.rand(k_in, generator=gen) + 0.5
-    b1[0, :k_in] = torch.randn(k_in, generator=gen) * 0.1
-    w1f = torch.zeros(c_end, 128)
-    w1f[:k_in] = torch.randn(k_in, 128, generator=gen) * (2.0 / k_in) ** 0.5
-    b2 = torch.randn(1, 128, generator=gen) * 0.1
-    w2cat = torch.randn(128, 288, generator=gen) * (2.0 / 1152) ** 0.5
-    return (x.to(dev, dtype), a1.to(dev), b1.to(dev), w1f.to(dev, dtype),
-            b2.to(dev), w2cat.to(dev, dtype))
+    """Random operands of one dense layer at activation scale ~1, made on
+    the card from the device generator `gen`."""
+    kw = dict(generator=gen, device=dev)
+    x = torch.zeros(CHUNK, h, h, c_end, device=dev)
+    x[..., :k_in] = torch.randn(CHUNK, h, h, k_in, **kw)
+    a1 = torch.zeros(1, c_end, device=dev)
+    b1 = torch.zeros(1, c_end, device=dev)
+    a1[0, :k_in] = torch.rand(k_in, **kw) + 0.5
+    b1[0, :k_in] = torch.randn(k_in, **kw) * 0.1
+    w1f = torch.zeros(c_end, 128, device=dev)
+    w1f[:k_in] = torch.randn(k_in, 128, **kw) * (2.0 / k_in) ** 0.5
+    b2 = torch.randn(1, 128, **kw) * 0.1
+    w2cat = torch.randn(128, 288, **kw) * (2.0 / 1152) ** 0.5
+    return x.to(dtype), a1, b1, w1f.to(dtype), b2, w2cat.to(dtype)
 
 
 # stated tolerances: f32 differs from the plain version by summation order
@@ -166,69 +173,105 @@ def close(torch, got, want, dtype):
     return ok, err.max().item()
 
 
-def dense_phase(torch, dn, dev, gen):
-    worst = 0.0
+def check_layer(torch, dn, ops, h, k_in, name):
+    """One dense layer, kernel against plain version on the same operands:
+    the prefix untouched, channels past the slot still 0, the slot within
+    the stated tolerance. Returns the slot's max abs error."""
+    kw = dict(n_active_groups=-(-k_in // 128), slot=k_in // 32)
+    got = dn.dense_layer_fused(ops[0].clone(), *ops[1:], **kw)
+    want = dn.dense_layer_reference(ops[0].clone(), *ops[1:], **kw)
+    torch.cuda.synchronize()
+    check(torch.equal(got[..., :k_in], ops[0][..., :k_in])
+          and not got[..., k_in + 32:].any(),
+          f"dense layer touched channels outside its slot "
+          f"(H={h}, k_in={k_in}, {name})")
+    ok, err = close(torch, got[..., k_in:k_in + 32],
+                    want[..., k_in:k_in + 32], name)
+    check(ok, f"dense layer mismatch H={h} k_in={k_in} {name}: "
+          f"max|err| {err:.3g}")
+    return err
+
+
+def shape_line(kernel, shape, n, ms, bounds, card):
+    """Log and return the per-shape timing of `n` launches whose summed
+    time is `ms`: mean ms/launch, summed and mean bound, share of bound."""
+    b_ms, b_by = mean_bound(bounds)
+    per = ms / n
+    log(f"timing {kernel} {shape}: {per:.4g} ms/launch x {n}, bound "
+        f"{b_ms * n:.4g} ms summed ({b_by}), share of bound "
+        f"{b_ms / per:.4g} [{card}]")
+    return dict(shape=shape, launches_per_chunk=n, ms=per, bound_ms=b_ms,
+                bound_by=b_by, share_of_bound=b_ms / per)
+
+
+def dense_phase(torch, dn, dev, gen, card):
+    """f32 at the first and last layer of each dense block; bf16 (the main
+    path) at every one of one chunk's 58 layers. Then every block's layers
+    are timed in bf16, block by block."""
     for h, ch, n_layers in BLOCKS:
         c_end = ch + 32 * n_layers
         for li in (0, n_layers - 1):
             k_in = ch + 32 * li
-            for dtype in (torch.float32, torch.bfloat16):
-                name = str(dtype).split(".")[1]
-                ops = layer_operands(torch, dev, gen, h, c_end, k_in, dtype)
-                kw = dict(n_active_groups=-(-k_in // 128), slot=k_in // 32)
-                got = dn.dense_layer_fused(ops[0].clone(), *ops[1:], **kw)
-                want = dn.dense_layer_reference(ops[0].clone(), *ops[1:], **kw)
-                torch.cuda.synchronize()
-                check(torch.equal(got[..., :k_in], ops[0][..., :k_in])
-                      and not got[..., k_in + 32:].any(),
-                      f"dense layer touched channels outside its slot "
-                      f"(H={h}, k_in={k_in}, {name})")
-                ok, err = close(torch, got[..., k_in:k_in + 32],
-                                want[..., k_in:k_in + 32], name)
-                log(f"dense_layer H={h} k_in={k_in} C_end={c_end} {name}: "
-                    f"max|err| {err:.3g} (rtol,atol {TOL[name]})")
-                check(ok, f"dense layer mismatch H={h} k_in={k_in} {name}")
-                if dtype == torch.bfloat16:
-                    worst = max(worst, err)
-    # time every layer of one 128-patch chunk in bf16 (58 launches)
-    layers, bounds = [], []
+            ops = layer_operands(torch, dev, gen, h, c_end, k_in,
+                                 torch.float32)
+            err = check_layer(torch, dn, ops, h, k_in, "float32")
+            log(f"dense_layer H={h} k_in={k_in} C_end={c_end} float32: "
+                f"max|err| {err:.3g} (rtol,atol {TOL['float32']})")
+    worst, blocks = 0.0, []
     for h, ch, n_layers in BLOCKS:
         c_end = ch + 32 * n_layers
-        x = None
+        layers, bounds, errs = [], [], []
         for li in range(n_layers):
             k_in = ch + 32 * li
             ops = layer_operands(torch, dev, gen, h, c_end, k_in,
                                  torch.bfloat16)
-            x = ops[0] if x is None else x
+            errs.append(check_layer(torch, dn, ops, h, k_in, "bfloat16"))
+            x = ops[0] if not layers else layers[0][0]
             layers.append((x,) + ops[1:] + (k_in,))
             px = CHUNK * h * h
             bounds.append(bound(
                 px * (k_in + 32) * 2 + (k_in * 128 + 128 * 288) * 2,
                 2.0 * px * (k_in * 128 + 9 * 128 * 32), "bfloat16"))
-    def run(fn):
+        log(f"dense_layer H={h} C_end={c_end} bfloat16, all {n_layers} "
+            f"layers (k_in {ch}..{ch + 32 * (n_layers - 1)}): max|err| "
+            f"{max(errs):.3g} (rtol,atol {TOL['bfloat16']})")
+        worst = max(worst, max(errs))
+        blocks.append((h, c_end, layers, bounds))
+
+    def run(fn, layers):
         def go():
             for x, a1, b1, w1f, b2, w2cat, k_in in layers:
                 fn(x, a1, b1, w1f, b2, w2cat,
                    n_active_groups=-(-k_in // 128), slot=k_in // 32)
         return go
-    n_l = len(layers)
-    ms = cuda_ms(run(dn.dense_layer_fused), reps=3, warmup=1) / n_l
-    plain = cuda_ms(run(dn.dense_layer_reference), reps=1, warmup=1) / n_l
-    b_ms, b_by = mean_bound(bounds)
-    return dict(max_abs_err=worst, ms=ms, plain_ms=plain, bound_ms=b_ms,
-                bound_by=b_by)
+    per_shape, total_ms, all_layers, all_bounds = [], 0.0, [], []
+    for h, c_end, layers, bounds in blocks:
+        ms = cuda_ms(run(dn.dense_layer_fused, layers), reps=3, warmup=1)
+        k_lo, k_hi = layers[0][-1], layers[-1][-1]
+        per_shape.append(shape_line(
+            "dense_layer_fused", f"[{CHUNK},{h},{h},{c_end}] k_in {k_lo}..{k_hi}",
+            len(layers), ms, bounds, card))
+        total_ms += ms
+        all_layers += layers
+        all_bounds += bounds
+    n_l = len(all_layers)
+    plain = cuda_ms(run(dn.dense_layer_reference, all_layers), reps=1,
+                    warmup=1) / n_l
+    b_ms, b_by = mean_bound(all_bounds)
+    return dict(max_abs_err=worst, ms=total_ms / n_l, plain_ms=plain,
+                bound_ms=b_ms, bound_by=b_by, per_shape=per_shape)
 
 
-def transition_phase(torch, dn, dev, gen):
+def transition_phase(torch, dn, dev, gen, card):
     worst, shapes = 0.0, []
     for h, c in ((64, 256), (32, 512), (16, 1024)):
         for dtype in (torch.float32, torch.bfloat16):
             name = str(dtype).split(".")[1]
-            x = torch.randn(CHUNK, h, h, c, generator=gen).to(dev, dtype)
-            a = (torch.rand(1, c, generator=gen) + 0.5).to(dev)
-            b = (torch.randn(1, c, generator=gen) * 0.1).to(dev)
-            w = (torch.randn(c, c // 2, generator=gen)
-                 * (2.0 / c) ** 0.5).to(dev, dtype)
+            kw = dict(generator=gen, device=dev)
+            x = torch.randn(CHUNK, h, h, c, **kw).to(dtype)
+            a = torch.rand(1, c, **kw) + 0.5
+            b = torch.randn(1, c, **kw) * 0.1
+            w = (torch.randn(c, c // 2, **kw) * (2.0 / c) ** 0.5).to(dtype)
             got = dn.transition_fused(x, a, b, w)
             want = dn.transition_reference(x, a, b, w)
             torch.cuda.synchronize()
@@ -239,19 +282,23 @@ def transition_phase(torch, dn, dev, gen):
             if dtype == torch.bfloat16:
                 worst = max(worst, err)
                 shapes.append((x, a, b, w))
-    ms = cuda_ms(lambda: [dn.transition_fused(*s) for s in shapes], reps=10)
-    plain = cuda_ms(lambda: [dn.transition_reference(*s) for s in shapes],
-                    reps=3)
-    bounds = []
-    for x, _, _, w in shapes:
+    per_shape, total_ms, bounds = [], 0.0, []
+    for x, a, b, w in shapes:
         bsz, h, _, c = x.shape
         m = bsz * (h // 2) * (h // 2)
         bounds.append(bound(
             x.numel() * 2 + w.numel() * 2 + m * (c // 2) * 2 + 8 * c,
             2.0 * m * c * (c // 2) + 4.0 * m * 4 * c, "bfloat16"))
+        ms = cuda_ms(lambda: dn.transition_fused(x, a, b, w), reps=10)
+        per_shape.append(shape_line(
+            "transition_fused", f"[{bsz},{h},{h},{c}]->{c // 2}", 1, ms,
+            bounds[-1:], card))
+        total_ms += ms
+    plain = cuda_ms(lambda: [dn.transition_reference(*s) for s in shapes],
+                    reps=3)
     b_ms, b_by = mean_bound(bounds)
-    return dict(max_abs_err=worst, ms=ms / 3, plain_ms=plain / 3,
-                bound_ms=b_ms, bound_by=b_by)
+    return dict(max_abs_err=worst, ms=total_ms / 3, plain_ms=plain / 3,
+                bound_ms=b_ms, bound_by=b_by, per_shape=per_shape)
 
 
 KERNELS = (
@@ -441,11 +488,15 @@ def slice_phase(torch, dev, card, kernels, gnn=GNN, requests=REQUESTS,
     return launches
 
 
+PORT_KERNELS = ("knn_l2", "dense_layer", "transition")   # csrc kernel names
+
+
 def profile_request(torch, pred, px, n: int, card: str, top: int = 12):
     """torch.profiler over one served request: the device's busy share (the
     union of its kernel and copy intervals over the request's host-clock
-    span) and the kernels that took the most device time. A profiler that
-    records no device activity leaves both unmeasured; it fails nothing."""
+    span) and the kernels that took the most device time, plus the port's
+    own kernels wherever they rank. A profiler that records no device
+    activity leaves both unmeasured; it fails nothing."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -477,8 +528,12 @@ def profile_request(torch, pred, px, n: int, card: str, top: int = 12):
         f"span {wall / 1e3:.1f} ms, device busy {busy / 1e3:.1f} ms "
         f"({busy / wall:.3f} of the span), device time summed over "
         f"{len(dev)} kernels and copies {dev_total / 1e3:.1f} ms [{card}]")
-    for name, us in sorted(per_name.items(), key=lambda kv: -kv[1])[:top]:
+    ranked = sorted(per_name.items(), key=lambda kv: -kv[1])
+    for name, us in ranked[:top]:
         log(f"  {us / 1e3:9.2f} ms {us / dev_total:6.3f}  {name[:100]}")
+    for name, us in ranked[top:]:   # the port's own kernels, wherever they rank
+        if any(k in name for k in PORT_KERNELS):
+            log(f"  {us / 1e3:9.2f} ms {us / dev_total:6.3f}  {name[:100]}")
 
 
 def main() -> int:
@@ -515,14 +570,20 @@ def main() -> int:
     for name, text in logs.items():
         if text.strip():
             log(f"--- nvcc {name} ---\n{text.strip()}")
+    for name in ("dense_layer", "transition"):
+        blocks, smem = dn.bf16_occupancy(name)
+        log(f"{name} bf16 kernel: {blocks} block(s) of 256 threads per SM, "
+            f"{smem} bytes of shared memory per block [{card}]")
     set_cuda_numerics()
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(0)
+    gen_dev = torch.Generator(device=dev).manual_seed(0)
 
     results = {}
-    results["knn_l2_fused"] = knn_phase(torch, kn, dev, gen)
-    results["dense_layer_fused"] = dense_phase(torch, dn, dev, gen)
-    results["transition_fused"] = transition_phase(torch, dn, dev, gen)
+    results["knn_l2_fused"] = knn_phase(torch, kn, dev, gen, card)
+    results["dense_layer_fused"] = dense_phase(torch, dn, dev, gen_dev, card)
+    results["transition_fused"] = transition_phase(torch, dn, dev, gen_dev,
+                                                   card)
     for name, r in results.items():
         log(f"timing {name}: {r['ms']:.4g} ms/launch (bound {r['bound_ms']:.4g}"
             f" ms by {r['bound_by']}; plain {r['plain_ms']:.4g} ms) "

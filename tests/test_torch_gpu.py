@@ -79,12 +79,19 @@ def _layer(dev, dtype, h=16, c_end=256, k_in=160, b=2, seed=0):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("h,k_in", [(16, 160), (12, 64), (8, 224)])
-def test_dense_layer_kernel_matches_plain(cuda, dtype, h, k_in):
+@pytest.mark.parametrize("h,k_in,c_end", [
+    (16, 160, 256), (12, 64, 256), (8, 224, 256),
+    # the main path's blocks, first and last layer
+    (64, 64, 256), (64, 224, 256), (32, 128, 512), (32, 480, 512),
+    (16, 256, 1024), (16, 992, 1024), (8, 512, 1024), (8, 992, 1024),
+    # ragged 16x16 tiles; k_in ending in a half 64-channel chunk
+    (20, 96, 256), (12, 224, 256)])
+def test_dense_layer_kernel_matches_plain(cuda, dtype, h, k_in, c_end):
     """In place: the prefix is untouched, the slot matches the plain
     version, the channels past the slot stay 0. H=12 leaves a ragged
-    8x8 output tile."""
-    ops = _layer(cuda, dtype, h=h, k_in=k_in)
+    8x8 output tile in the f32 kernel; H=20 ragged 16x16 tiles in the
+    bf16 one."""
+    ops = _layer(cuda, dtype, h=h, c_end=c_end, k_in=k_in)
     kw = dict(n_active_groups=-(-k_in // 128), slot=k_in // 32)
     got = kdn.dense_layer_fused(ops[0].clone(), *ops[1:], **kw)
     want = kdn.dense_layer_reference(ops[0].clone(), *ops[1:], **kw)
@@ -96,17 +103,21 @@ def test_dense_layer_kernel_matches_plain(cuda, dtype, h, k_in):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("h,c", [(8, 64), (16, 256), (6, 320)])
-def test_transition_kernel_matches_plain(cuda, dtype, h, c):
+@pytest.mark.parametrize("h,c,bsz", [
+    (8, 64, 3), (16, 256, 3), (6, 320, 3),
+    # the main path's three transitions
+    (64, 256, 2), (32, 512, 2), (16, 1024, 2)])
+def test_transition_kernel_matches_plain(cuda, dtype, h, c, bsz):
     g = torch.Generator().manual_seed(1)
-    x = torch.randn(3, h, h, c, generator=g).to(cuda, dtype)
+    x = torch.randn(bsz, h, h, c, generator=g).to(cuda, dtype)
     a = (torch.rand(1, c, generator=g) + 0.5).to(cuda)
     b = (torch.randn(1, c, generator=g) * 0.1).to(cuda)
     w = (torch.randn(c, c // 2, generator=g) * (2.0 / c) ** 0.5).to(cuda, dtype)
     torch.testing.assert_close(kdn.transition_fused(x, a, b, w).float(),
                                kdn.transition_reference(x, a, b, w).float(),
                                **TOL[dtype])
-    out = torch.zeros(3, h // 2, h // 2, c // 2 + 32, dtype=dtype, device=cuda)
+    out = torch.zeros(bsz, h // 2, h // 2, c // 2 + 32, dtype=dtype,
+                      device=cuda)
     kdn.transition_fused(x, a, b, w, out=out)
     torch.testing.assert_close(out[..., :c // 2].float(),
                                kdn.transition_reference(x, a, b, w).float(),
@@ -124,6 +135,12 @@ def test_kernel_wrappers_raise_instead_of_falling_back(cuda):
         kdn.transition_fused(x.transpose(1, 2), torch.ones(1, 64, device=cuda),
                              torch.zeros(1, 64, device=cuda),
                              torch.zeros(64, 32, device=cuda))
+    x = torch.randn(2, 8, 8, 48, device=cuda).to(torch.bfloat16)
+    with pytest.raises(ValueError):  # the bf16 kernel takes 32-channel chunks
+        kdn.transition_fused(x, torch.ones(1, 48, device=cuda),
+                             torch.zeros(1, 48, device=cuda),
+                             torch.zeros(48, 24, device=cuda,
+                                         dtype=torch.bfloat16))
 
 
 def test_fused_kimianet_on_card_matches_module(cuda):

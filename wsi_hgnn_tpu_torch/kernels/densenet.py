@@ -3,12 +3,21 @@ and their plain PyTorch versions.
 
 Counterparts of wsi_hgnn_tpu/ops/pallas_densenet.py::dense_layer_fused and
 ::transition_fused. The kernels (`csrc/dense_layer.cu`,
-`csrc/transition.cu`, whose notes say what bounds them and how they are
-built) work on NHWC block buffers in bf16 (the main path) or f32, with
-f32 accumulation. Each GEMM operand is rounded to the storage type first,
-as the TPU kernels do; the TPU kernel's extra rounding of the 3x3 conv's
-tap products (pallas_densenet.py:72) is not copied, so bf16 comparisons
-with the JAX package allow for it.
+`csrc/transition.cu`) work on NHWC block buffers with f32 accumulation.
+bf16 storage (the main path) runs on the tensor cores
+(`mma.sync.aligned.m16n8k16` bf16 with f32 accumulation, operands staged
+by 16-byte `cp.async`): the dense layer computes the bottleneck once per
+in-image halo pixel of a whole-image (H <= 16) or 16x16 tile and the 3x3
+conv as an implicit GEMM over the halo; the transition multiplies the
+unpooled pixels and pools the accumulators. On the H100 the dense layer
+is bound by operations at H=64 and by bytes from H=16 down, the
+transition by bytes; the kernel sources' notes give the figures. f32
+storage keeps a CUDA-core design for exact-semantics checks. Each GEMM
+operand is rounded to the storage type first, as the TPU kernels do; the
+TPU kernel's extra rounding of the 3x3 conv's tap products
+(pallas_densenet.py:72) is not copied, so bf16 comparisons with the JAX
+package allow for it. Operands on the card must be contiguous and
+16-byte aligned.
 """
 from __future__ import annotations
 
@@ -97,6 +106,19 @@ def _kernel(name: str, suffix: str):
     return fn
 
 
+def bf16_occupancy(name: str) -> tuple[int, int]:
+    """(blocks per SM, shared memory bytes per block) of the bf16 kernel of
+    `name` ("dense_layer" or "transition"), as the CUDA runtime reports
+    them on the current card."""
+    fn = getattr(_build.load(name), f"{name}_bf16_occupancy")
+    fn.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
+    fn.restype = ctypes.c_int
+    blocks, smem = ctypes.c_int(0), ctypes.c_int(0)
+    _build.check(fn(ctypes.byref(blocks), ctypes.byref(smem)),
+                 f"{name} occupancy")
+    return blocks.value, smem.value
+
+
 def _require(cond: bool, what: str) -> None:
     if not cond:
         raise ValueError(what)
@@ -107,8 +129,10 @@ def _cuda_args(x: torch.Tensor, floats, typed) -> str:
     _require(x.device.type == "cuda", "kernel operands must be CUDA tensors")
     _require(x.dtype in _DTYPES, f"unsupported storage dtype {x.dtype}")
     for t in (x, *floats, *typed):
-        _require(t.device == x.device and t.is_contiguous(),
-                 "operands must be contiguous and on one device")
+        _require(t.device == x.device and t.is_contiguous()
+                 and t.data_ptr() % 16 == 0,
+                 "operands must be contiguous, 16-byte aligned and on one "
+                 "device")
     for t in floats:
         _require(t.dtype == torch.float32, "affine operands must be f32")
     for t in typed:
@@ -131,6 +155,8 @@ def dense_layer_fused(x_full, a1, b1, w1f, b2, w2cat, *,
     _require(a1.numel() == c_end and b1.numel() == c_end
              and w1f.shape == (c_end, GROUP) and b2.numel() == GROUP
              and w2cat.shape == (GROUP, 9 * GROWTH), "operand shapes")
+    _require(suffix == "f32" or c_end % 8 == 0,
+             "the bf16 kernel copies 16-byte rows: C_end % 8 == 0")
     status = _kernel("dense_layer", suffix)(
         x_full.data_ptr(), a1.data_ptr(), b1.data_ptr(), w1f.data_ptr(),
         b2.data_ptr(), w2cat.data_ptr(), bsz, h, w, c_end, k_in, slot,
@@ -157,6 +183,9 @@ def transition_fused(x, a, b, w, out: Optional[torch.Tensor] = None
              and w.shape == (c, c // 2)
              and out.shape[:3] == (bsz, h // 2, w_sp // 2)
              and out.shape[3] >= c // 2, "operand shapes")
+    _require(suffix == "f32" or (c % 32 == 0 and out.shape[3] % 2 == 0),
+             "the bf16 kernel takes 32-channel chunks and stores channel "
+             "pairs: C % 32 == 0 and an even out row")
     status = _kernel("transition", suffix)(
         x.data_ptr(), a.data_ptr(), b.data_ptr(), w.data_ptr(),
         out.data_ptr(), bsz, h, w_sp, c, out.shape[3],
