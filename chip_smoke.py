@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch port (`wsi_hgnn_tpu_torch`) on one NVIDIA GPU.
 
     python3 chip_smoke.py            # everything, one card, exit 0 when all holds
+    python3 chip_smoke.py --knn-only # the KNN kernel's checks and timings only
 
 1. Prints the card (`nvidia-smi` name and power limit) and builds every
    CUDA kernel from `wsi_hgnn_tpu_torch/csrc` with nvcc for sm_90a, one
@@ -9,15 +10,17 @@
    per SM and shared memory (`--ptxas` adds nvcc's register report).
 2. Kernel phases: each kernel against its plain PyTorch version at the
    main path's shapes (the bf16 dense layer at all 58 layers of a
-   128-patch chunk), with the tolerance printed beside the error.
+   128-patch chunk; the KNN bit-equal on exact data, with ragged, tiny
+   and all-ties slides, and at every size N = 384 .. 16384), with the
+   tolerance printed beside the error.
 3. The slice: `SlidePredictor` at the width of
    configs/BRCA/HEAT4_kimia_classification.yml, pixels in (KimiaNet
    features + HoVer-Net typing, bf16), exact KNN + Pearson lattice,
    HEAT4, softmax; requests of 2048, 1000 and 300 patches. The kernel
    launch counters are zeroed just before and read just after.
 4. Timing lines (CUDA events per kernel launch, one line per main-path
-   shape: each dense block, each transition, with ms/launch, bound and
-   share of the bound; host clock per stage),
+   shape: each KNN size, each dense block, each transition, with
+   ms/launch, bound and share of the bound; host clock per stage),
    and a torch.profiler pass over the last request: the device's busy
    share and the kernels that took the most device time.
 
@@ -101,45 +104,80 @@ BLOCKS = ((64, 64, 6), (32, 128, 12), (16, 256, 24), (8, 512, 16))  # (H, ch_in,
 CHUNK = 128
 
 
-def knn_phase(torch, kn, dev, gen, card):
-    """Exact-arithmetic inputs (small integers: every product and sum is
-    exact in f32, so any summation order gives the same bits) with planted
-    duplicate rows (exact ties) and a padding mask: indices and distances
-    must be EXACTLY equal. Gaussian inputs: distances to 1e-5 relative,
-    index mismatches only where two distances tie within that."""
-    worst, rows = 0.0, []
-    for n, n_real in ((2048, 2000), (384, 300)):
-        f = torch.randint(-8, 9, (n, 1024), generator=gen,
-                          dtype=torch.int32).float().to(dev)
-        f[1::7] = f[0:n - 1:7][: f[1::7].shape[0]]  # planted exact ties
-        mask = (torch.arange(n, device=dev) < n_real)
-        i_k, d_k = kn.knn_l2_fused(f, 8, mask)
-        i_p, d_p = kn.knn_l2_reference(f, 8, mask)
+KNN_SIZES = (384, 1024, 2048, 4096, 8192, 16384)  # buckets up to 10^4 patches
+KNN_MAIN = 2048      # the 2048-patch request's bucket: the summary row
+KNN_D, KNN_K = 1024, 8
+# (N, live rows, kind): planted duplicate rows, a ragged N across split
+# boundaries, a slide with fewer live candidates than k, all rows equal
+KNN_EXACT = ((2048, 2000, "ties"), (384, 300, "ties"), (3000, 2900, "ties"),
+             (384, 5, "ties"), (2048, 1900, "equal"))
+
+
+def knn_exact_features(torch, gen, n, kind):
+    """Small integers: every product and sum is exact in f32, so any
+    summation order gives the same bits. 'ties' plants duplicate rows
+    (exact ties); 'equal' repeats one row, so every distance ties."""
+    f = torch.randint(-8, 9, (n, KNN_D), generator=gen,
+                      dtype=torch.int32).float()
+    if kind == "equal":
+        f[:] = f[0]
+    else:
+        f[1::7] = f[0:n - 1:7][: f[1::7].shape[0]]
+    return f
+
+
+def knn_phase(torch, kn, knn_ops, dev, gen, card):
+    """Exact-arithmetic inputs: indices and distances must be EXACTLY equal
+    to the plain version's. Gaussian inputs at every size: distances to
+    1e-5 relative, index mismatches only where two distances tie within
+    that. Then one timing line per size. From N = STREAM_THRESHOLD on, the
+    plain version is the streaming `knn_l2_tiled` (no [N, N] matrix)."""
+    def plain_of(n):
+        return (kn.knn_l2_reference if n < knn_ops.STREAM_THRESHOLD
+                else knn_ops.knn_l2_tiled)
+
+    for n, n_real, kind in KNN_EXACT:
+        f = knn_exact_features(torch, gen, n, kind).to(dev)
+        mask = torch.arange(n, device=dev) < n_real
+        i_k, d_k = kn.knn_l2_fused(f, KNN_K, mask)
+        i_p, d_p = plain_of(n)(f, KNN_K, mask)
         torch.cuda.synchronize()
-        check(torch.equal(i_k, i_p), f"knn idx differs (exact data, N={n})")
-        check(torch.equal(d_k, d_p), f"knn d2 differs (exact data, N={n})")
-        g = torch.randn(n, 1024, generator=gen).to(dev)
-        i_k, d_k = kn.knn_l2_fused(g, 8, mask)
-        i_p, d_p = kn.knn_l2_reference(g, 8, mask)
+        what = f"(exact data, N={n}, mask {n_real}, {kind})"
+        check(torch.equal(i_k, i_p), f"knn idx differs {what}")
+        check(torch.equal(d_k, d_p), f"knn d2 differs {what}")
+        if kind == "equal":
+            check(bool((i_k[:, 1:] > i_k[:, :-1]).all()),
+                  f"knn ties not in index order {what}")
+        log(f"knn N={n} mask={n_real} {kind}: exact data idx+d2 equal")
+    worst, per_shape, main = 0.0, [], None
+    for n in KNN_SIZES:
+        plain = plain_of(n)
+        g = torch.randn(n, KNN_D, generator=gen).to(dev)
+        mask = torch.arange(n, device=dev) < n - n // 32
+        i_k, d_k = kn.knn_l2_fused(g, KNN_K, mask)
+        i_p, d_p = plain(g, KNN_K, mask)
         err = (d_k - d_p).abs().max().item()
         rel = ((d_k - d_p).abs() / d_p.abs().clamp_min(1e-6)).max().item()
         mism = int((i_k != i_p).sum().item())
         check(rel <= 1e-5, f"knn d2 rel err {rel:.3g} > 1e-5 (N={n})")
-        log(f"knn N={n} mask={n_real}: exact data idx+d2 equal; gaussian "
-            f"max|d2 err| {err:.3g} (rel {rel:.3g} <= 1e-5), "
-            f"{mism} index swaps at near-ties")
         worst = max(worst, err)
-        rows.append((n, f))
-    f = torch.randn(2048, 1024, generator=gen).to(dev)
-    ms = cuda_ms(lambda: kn.knn_l2_fused(f, 8), reps=20)
-    plain = cuda_ms(lambda: kn.knn_l2_reference(f, 8), reps=5)
-    n, d = f.shape
-    b_ms, b_by = bound(n * d * 4 + n * 4 + n * 8 * 8, 2.0 * n * n * d + 3 * n * d,
-                       "float32")
-    return dict(max_abs_err=worst, ms=ms, plain_ms=plain, bound_ms=b_ms,
-                bound_by=b_by, per_shape=[shape_line(
-                    "knn_l2_fused", f"N={n} D={d} k=8", 1, ms,
-                    [(b_ms, b_by)], card)])
+        reps = max(3, min(30, 40000 // n))
+        ms = cuda_ms(lambda: kn.knn_l2_fused(g, KNN_K), reps=reps)
+        plain_ms = cuda_ms(lambda: plain(g, KNN_K), reps=reps)
+        b_ms, b_by = bound(n * KNN_D * 4 + n * 4 + n * KNN_K * 8,
+                           2.0 * n * n * KNN_D + 3 * n * KNN_D, "float32")
+        log(f"timing knn_l2_fused N={n} D={KNN_D} k={KNN_K}: {ms:.4g} ms/call,"
+            f" bound {b_ms:.4g} ms ({b_by}), share of bound {b_ms / ms:.4g};"
+            f" plain ({plain.__name__}) {plain_ms:.4g} ms; gaussian max|d2 "
+            f"err| {err:.3g} (rel {rel:.3g} <= 1e-5), {mism} index swaps at "
+            f"near-ties [{card}]")
+        per_shape.append(dict(shape=f"N={n} D={KNN_D} k={KNN_K}",
+                              launches_per_chunk=1, ms=ms, bound_ms=b_ms,
+                              bound_by=b_by, share_of_bound=b_ms / ms,
+                              plain_ms=plain_ms))
+        if n == KNN_MAIN:
+            main = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+    return dict(max_abs_err=worst, **main, per_shape=per_shape)
 
 
 def layer_operands(torch, dev, gen, h, c_end, k_in, dtype):
@@ -540,6 +578,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--ptxas", action="store_true",
                     help="print nvcc -Xptxas -v for every kernel")
+    ap.add_argument("--knn-only", action="store_true",
+                    help="build the KNN kernel only and run its phase (checks "
+                         "and one timing line per size); prints no JSON")
     args = ap.parse_args()
 
     import torch
@@ -557,6 +598,7 @@ def main() -> int:
     from wsi_hgnn_tpu_torch.kernels import _build
     from wsi_hgnn_tpu_torch.kernels import densenet as dn
     from wsi_hgnn_tpu_torch.kernels import knn as kn
+    from wsi_hgnn_tpu_torch.ops import knn as knn_ops
     from wsi_hgnn_tpu_torch.utils import set_cuda_numerics
 
     card = card_line()
@@ -564,23 +606,32 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
     t0 = time.perf_counter()
-    logs = _build.build_all(verbose=args.ptxas)
+    sources = ("knn",) if args.knn_only else _build.SOURCES
+    logs = _build.build_all(sources, verbose=args.ptxas)
     log(f"kernels built in {time.perf_counter() - t0:.1f} s "
-        f"({', '.join(_build.SOURCES)})")
+        f"({', '.join(sources)})")
     for name, text in logs.items():
         if text.strip():
             log(f"--- nvcc {name} ---\n{text.strip()}")
+    set_cuda_numerics()
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(0)
+    if args.knn_only:
+        r = knn_phase(torch, kn, knn_ops, dev, gen, card)
+        log(f"timing knn_l2_fused N={KNN_MAIN}: {r['ms']:.4g} ms/call "
+            f"(bound {r['bound_ms']:.4g} ms; plain {r['plain_ms']:.4g} ms) "
+            f"[{card}]")
+        return 0
+    log("knn_l2 kernel: candidate splits per size " + ", ".join(
+        f"N={n}: {kn.kernel_splits(n, KNN_K)}" for n in KNN_SIZES) + f" [{card}]")
     for name in ("dense_layer", "transition"):
         blocks, smem = dn.bf16_occupancy(name)
         log(f"{name} bf16 kernel: {blocks} block(s) of 256 threads per SM, "
             f"{smem} bytes of shared memory per block [{card}]")
-    set_cuda_numerics()
-    dev = torch.device("cuda")
-    gen = torch.Generator().manual_seed(0)
     gen_dev = torch.Generator(device=dev).manual_seed(0)
 
     results = {}
-    results["knn_l2_fused"] = knn_phase(torch, kn, dev, gen, card)
+    results["knn_l2_fused"] = knn_phase(torch, kn, knn_ops, dev, gen, card)
     results["dense_layer_fused"] = dense_phase(torch, dn, dev, gen_dev, card)
     results["transition_fused"] = transition_phase(torch, dn, dev, gen_dev,
                                                    card)

@@ -37,19 +37,80 @@ def cuda():
     return torch.device("cuda")
 
 
+def _exact_features(n, d, seed=0):
+    """Small integers with planted duplicate rows (exact ties)."""
+    rng = np.random.RandomState(seed)
+    f = rng.randint(-8, 9, (n, d)).astype(np.float32)
+    f[1::6] = f[0:n - 1:6][: len(f[1::6])]
+    return f
+
+
 @pytest.mark.parametrize("n", [384, 700])
 def test_knn_kernel_equals_plain_on_exact_data(cuda, n):
     """Small-integer features make every distance exact in f32, so the
     kernel must equal the plain version bit for bit, planted ties and a
     ragged N (700 is no multiple of the kernel's tiles) included."""
-    rng = np.random.RandomState(0)
-    f = rng.randint(-8, 9, (n, 96)).astype(np.float32)
-    f[1::6] = f[0:n - 1:6][: len(f[1::6])]
-    x = torch.from_numpy(f).to(cuda)
+    x = torch.from_numpy(_exact_features(n, 96)).to(cuda)
     mask = torch.arange(n, device=cuda) < n - 50
     before = kknn.knn_l2_fused.launches
     i_k, d_k = kknn.knn_l2_fused(x, 8, mask)
     i_p, d_p = kknn.knn_l2_reference(x, 8, mask)
+    torch.cuda.synchronize()
+    assert kknn.knn_l2_fused.launches == before + 1
+    assert torch.equal(i_k, i_p) and torch.equal(d_k, d_p)
+
+
+@pytest.mark.parametrize("n,d,k,n_real", [
+    # ragged N across the candidate splits and the 128-query tiles
+    (700, 96, 8, 650), (3000, 96, 8, 2900), (4100, 64, 8, 4000),
+    # D not a multiple of the 8-feature step, or of the 16-byte load
+    (1000, 100, 8, 990), (520, 36, 8, 500), (333, 98, 8, 300),
+    # k = 1, 16 (the largest with the first-tile bound) and KMAX
+    (1024, 96, 1, 1000), (1500, 64, 16, 1400), (1024, 96, kknn.KMAX, 1000),
+    (250, 40, kknn.KMAX, 250),
+    # a split of one candidate (N = 129: the second split holds row 128)
+    (129, 16, 8, 129),
+    # fewer live candidates than k: f32-max entries fill in index order
+    (384, 96, 8, 5), (300, 64, kknn.KMAX, 20)])
+def test_knn_kernel_split_edges_equal_plain(cuda, n, d, k, n_real):
+    """Exact data: the split kernel equals the plain version bit for bit
+    wherever splits, tiles and feature steps leave ragged edges."""
+    x = torch.from_numpy(_exact_features(n, d)).to(cuda)
+    mask = torch.arange(n, device=cuda) < n_real
+    before = kknn.knn_l2_fused.launches
+    i_k, d_k = kknn.knn_l2_fused(x, k, mask)
+    i_p, d_p = kknn.knn_l2_reference(x, k, mask)
+    torch.cuda.synchronize()
+    assert kknn.knn_l2_fused.launches == before + 1
+    assert torch.equal(i_k, i_p) and torch.equal(d_k, d_p)
+
+
+@pytest.mark.parametrize("n,k", [(2048, 8), (1100, kknn.KMAX)])
+def test_knn_kernel_all_rows_equal_keeps_index_order(cuda, n, k):
+    """Every distance ties: whatever order threads and splits arrive in,
+    each query's neighbours are the lowest live indices but its own."""
+    x = torch.from_numpy(np.tile(_exact_features(1, 64), (n, 1))).to(cuda)
+    mask = torch.arange(n, device=cuda) < n - 30
+    i_k, d_k = kknn.knn_l2_fused(x, k, mask)
+    i_p, d_p = kknn.knn_l2_reference(x, k, mask)
+    torch.cuda.synchronize()
+    assert torch.equal(i_k, i_p) and torch.equal(d_k, d_p)
+    assert not d_k.any()
+    first = torch.arange(k + 1, device=cuda, dtype=torch.int32)
+    assert torch.equal(i_k[k + 1], first[:k])       # a query past the first k
+    assert torch.equal(i_k[0], first[1:])            # query 0 skips itself
+
+
+def test_knn_kernel_large_slide_equals_tiled(cuda):
+    """N = 8192: against the streaming plain version (no [N, N] matrix)."""
+    from wsi_hgnn_tpu_torch.ops.knn import knn_l2_tiled
+
+    n = 8192
+    x = torch.from_numpy(_exact_features(n, 64, seed=1)).to(cuda)
+    mask = torch.arange(n, device=cuda) < n - 100
+    before = kknn.knn_l2_fused.launches
+    i_k, d_k = kknn.knn_l2_fused(x, 8, mask)
+    i_p, d_p = knn_l2_tiled(x, 8, mask)
     torch.cuda.synchronize()
     assert kknn.knn_l2_fused.launches == before + 1
     assert torch.equal(i_k, i_p) and torch.equal(d_k, d_p)

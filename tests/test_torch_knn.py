@@ -49,6 +49,38 @@ def test_knn_matches_jax_exact_and_pallas(kind):
         np.testing.assert_array_equal(d_t.numpy(), np.asarray(d_ref))
 
 
+@pytest.mark.parametrize("layout", ["all_rows_equal", "duplicated_block"])
+def test_knn_tie_rule_matches_jax_exact_and_pallas(layout):
+    """Massive exact ties, the case where the split CUDA kernel's threads
+    and splits arrive in any order: every tie must still go to the lower
+    candidate index, as both JAX routes decide it, index for index."""
+    n, k = 256, 8
+    f = _features("exact", n, 16, 6)
+    if layout == "all_rows_equal":
+        f[:] = f[0]
+    else:
+        f[40:150] = f[40]    # one block of 110 identical rows
+    mask = np.arange(n) < 240
+    i_ref, d_ref = jknn.knn_l2(jnp.asarray(f), k, jnp.asarray(mask))
+    i_pal, d_pal = knn_l2_pallas(jnp.asarray(f), k, jnp.asarray(mask),
+                                 tile_q=128, tile_c=128, interpret=True)
+    i_t, d_t = knn_l2_fused(torch.from_numpy(f), k, torch.from_numpy(mask))
+    np.testing.assert_array_equal(i_t.numpy(), np.asarray(i_ref))
+    np.testing.assert_array_equal(i_t.numpy(), np.asarray(i_pal))
+    np.testing.assert_array_equal(d_t.numpy(), np.asarray(d_ref))
+    np.testing.assert_array_equal(d_t.numpy(), np.asarray(d_pal))
+    if layout == "all_rows_equal":
+        # the lowest live indices but the query's own
+        for q in (0, 5, 100, 250):
+            want = [j for j in range(240) if j != q][:k]
+            np.testing.assert_array_equal(i_t.numpy()[q], want)
+    else:
+        # a row of the block: the block's lowest other indices, at 0
+        assert (d_t.numpy()[60] == 0).all()
+        np.testing.assert_array_equal(i_t.numpy()[60],
+                                      [j for j in range(40, 49)][:k])
+
+
 def test_knn_tiny_slide_selects_self_and_padding_like_jax():
     """Fewer live candidates than k: the remaining slots take the
     f32-max entries in index order, as the exact JAX route does."""

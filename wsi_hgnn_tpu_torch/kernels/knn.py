@@ -2,9 +2,11 @@
 PyTorch version.
 
 Counterpart of wsi_hgnn_tpu/ops/pallas_knn.py::knn_l2_pallas. The kernel
-(`csrc/knn.cu`, which says what bounds it and how it is built) streams
-candidate tiles through shared memory and keeps a running top-k per
-query, so the [N, N] distance matrix never exists; it takes any N.
+(`csrc/knn.cu`, which says what bounds it and how it is built) splits the
+candidates of every 128-query tile over several blocks so that a slide
+fills the card, streams candidate tiles through shared memory, keeps a
+running top-k per query and split, and merges the split lists; the
+[N, N] distance matrix never exists, and it takes any N.
 """
 from __future__ import annotations
 
@@ -47,14 +49,28 @@ def _select(d2: torch.Tensor, query_ids: torch.Tensor,
     return idx[:, :k].to(torch.int32), vals[:, :k].contiguous()
 
 
+_P, _I = ctypes.c_void_p, ctypes.c_int
+
+
 @functools.lru_cache(maxsize=None)
-def _kernel():
-    fn = _build.load("knn").knn_l2_f32
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+def _lib():
+    lib = _build.load("knn")
+    lib.knn_l2_f32.argtypes = [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P, _P, _P]
+    lib.knn_l2_f32.restype = ctypes.c_int
+    lib.knn_l2_splits.argtypes = [_I, _I, ctypes.POINTER(ctypes.c_int)]
+    lib.knn_l2_splits.restype = ctypes.c_int
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def kernel_splits(n: int, k: int, device: int = 0) -> int:
+    """Candidate splits the kernel uses for N rows and k neighbours on card
+    `device` (it depends on the card's SM count and occupancy)."""
+    out = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        _build.check(_lib().knn_l2_splits(n, k, ctypes.byref(out)),
+                     "knn_l2_splits")
+    return out.value
 
 
 def knn_l2_fused(features: torch.Tensor, k: int,
@@ -72,17 +88,32 @@ def knn_l2_fused(features: torch.Tensor, k: int,
         raise ValueError(f"k={k} must lie in [1, min({KMAX}, N={n})]")
     dev = features.device
     f32 = features.to(torch.float32).contiguous()
+    if d % 4 or d == 0:
+        # the kernel loads 16-byte pieces of rows: zero columns change no
+        # norm and no dot product
+        f32 = torch.nn.functional.pad(f32, (0, 4 - d % 4))
+    elif f32.data_ptr() % 16:
+        f32 = f32.clone()
     if mask is None:
         cmask = torch.ones(n, dtype=torch.int32, device=dev)
     else:
         if mask.shape != (n,) or mask.device != dev:
             raise ValueError("mask must be [N] on the features' device")
         cmask = mask.to(torch.int32).contiguous()
+    splits = kernel_splits(n, k, dev.index)
     idx = torch.empty((n, k), dtype=torch.int32, device=dev)
     d2 = torch.empty((n, k), dtype=torch.float32, device=dev)
-    status = _kernel()(f32.data_ptr(), cmask.data_ptr(), n, d, k,
-                       idx.data_ptr(), d2.data_ptr(),
-                       torch.cuda.current_stream(dev).cuda_stream)
+    sq = torch.empty(n, dtype=torch.float32, device=dev)
+    part_i, part_d = idx, d2   # one split writes the outputs directly
+    if splits > 1:
+        part_i = torch.empty((splits, n, k), dtype=torch.int32, device=dev)
+        part_d = torch.empty((splits, n, k), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        status = _lib().knn_l2_f32(
+            f32.data_ptr(), cmask.data_ptr(), n, f32.shape[1], k, splits,
+            sq.data_ptr(), part_i.data_ptr(), part_d.data_ptr(),
+            idx.data_ptr(), d2.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
     _build.check(status, "knn_l2_f32")
     knn_l2_fused.launches += 1
     return idx, d2
