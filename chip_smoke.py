@@ -2,7 +2,6 @@
 """Smoke run of the PyTorch port (`wsi_hgnn_tpu_torch`) on one NVIDIA GPU.
 
     python3 chip_smoke.py            # everything, one card, exit 0 when all holds
-    python3 chip_smoke.py --knn-only # the KNN kernel's checks and timings only
 
 1. Prints the card (`nvidia-smi` name and power limit) and builds every
    CUDA kernel from `wsi_hgnn_tpu_torch/csrc` with nvcc for sm_90a, one
@@ -160,21 +159,21 @@ def knn_phase(torch, kn, knn_ops, dev, gen, card):
         rel = ((d_k - d_p).abs() / d_p.abs().clamp_min(1e-6)).max().item()
         mism = int((i_k != i_p).sum().item())
         check(rel <= 1e-5, f"knn d2 rel err {rel:.3g} > 1e-5 (N={n})")
+        log(f"knn N={n} gaussian, plain version {plain.__name__}: max|d2 err|"
+            f" {err:.3g} (rel {rel:.3g} <= 1e-5), {mism} index swaps at "
+            f"near-ties")
         worst = max(worst, err)
         reps = max(3, min(30, 40000 // n))
         ms = cuda_ms(lambda: kn.knn_l2_fused(g, KNN_K), reps=reps)
         plain_ms = cuda_ms(lambda: plain(g, KNN_K), reps=reps)
+        # operations: the Gram matrix is symmetric (q.c and c.q, summed in
+        # one feature order, are the same bits), so the function needs its
+        # upper triangle only, diagonal (the row norms) included
         b_ms, b_by = bound(n * KNN_D * 4 + n * 4 + n * KNN_K * 8,
-                           2.0 * n * n * KNN_D + 3 * n * KNN_D, "float32")
-        log(f"timing knn_l2_fused N={n} D={KNN_D} k={KNN_K}: {ms:.4g} ms/call,"
-            f" bound {b_ms:.4g} ms ({b_by}), share of bound {b_ms / ms:.4g};"
-            f" plain ({plain.__name__}) {plain_ms:.4g} ms; gaussian max|d2 "
-            f"err| {err:.3g} (rel {rel:.3g} <= 1e-5), {mism} index swaps at "
-            f"near-ties [{card}]")
-        per_shape.append(dict(shape=f"N={n} D={KNN_D} k={KNN_K}",
-                              launches_per_chunk=1, ms=ms, bound_ms=b_ms,
-                              bound_by=b_by, share_of_bound=b_ms / ms,
-                              plain_ms=plain_ms))
+                           float(n * (n + 1) * KNN_D), "float32")
+        per_shape.append(shape_line(
+            "knn_l2_fused", f"N={n} D={KNN_D} k={KNN_K}", 1, ms,
+            [(b_ms, b_by)], card, plain_ms=plain_ms))
         if n == KNN_MAIN:
             main = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
     return dict(max_abs_err=worst, **main, per_shape=per_shape)
@@ -230,16 +229,21 @@ def check_layer(torch, dn, ops, h, k_in, name):
     return err
 
 
-def shape_line(kernel, shape, n, ms, bounds, card):
+def shape_line(kernel, shape, n, ms, bounds, card, plain_ms=None):
     """Log and return the per-shape timing of `n` launches whose summed
-    time is `ms`: mean ms/launch, summed and mean bound, share of bound."""
+    time is `ms`: mean ms/launch, summed and mean bound, share of bound,
+    and the plain version's ms/launch where it was timed."""
     b_ms, b_by = mean_bound(bounds)
     per = ms / n
+    plain = "" if plain_ms is None else f"; plain {plain_ms:.4g} ms/launch"
     log(f"timing {kernel} {shape}: {per:.4g} ms/launch x {n}, bound "
         f"{b_ms * n:.4g} ms summed ({b_by}), share of bound "
-        f"{b_ms / per:.4g} [{card}]")
-    return dict(shape=shape, launches_per_chunk=n, ms=per, bound_ms=b_ms,
-                bound_by=b_by, share_of_bound=b_ms / per)
+        f"{b_ms / per:.4g}{plain} [{card}]")
+    row = dict(shape=shape, launches_per_chunk=n, ms=per, bound_ms=b_ms,
+               bound_by=b_by, share_of_bound=b_ms / per)
+    if plain_ms is not None:
+        row["plain_ms"] = plain_ms
+    return row
 
 
 def dense_phase(torch, dn, dev, gen, card):
@@ -578,9 +582,6 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--ptxas", action="store_true",
                     help="print nvcc -Xptxas -v for every kernel")
-    ap.add_argument("--knn-only", action="store_true",
-                    help="build the KNN kernel only and run its phase (checks "
-                         "and one timing line per size); prints no JSON")
     args = ap.parse_args()
 
     import torch
@@ -606,28 +607,19 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
     t0 = time.perf_counter()
-    sources = ("knn",) if args.knn_only else _build.SOURCES
-    logs = _build.build_all(sources, verbose=args.ptxas)
+    logs = _build.build_all(verbose=args.ptxas)
     log(f"kernels built in {time.perf_counter() - t0:.1f} s "
-        f"({', '.join(sources)})")
+        f"({', '.join(_build.SOURCES)})")
     for name, text in logs.items():
         if text.strip():
             log(f"--- nvcc {name} ---\n{text.strip()}")
-    set_cuda_numerics()
-    dev = torch.device("cuda")
-    gen = torch.Generator().manual_seed(0)
-    if args.knn_only:
-        r = knn_phase(torch, kn, knn_ops, dev, gen, card)
-        log(f"timing knn_l2_fused N={KNN_MAIN}: {r['ms']:.4g} ms/call "
-            f"(bound {r['bound_ms']:.4g} ms; plain {r['plain_ms']:.4g} ms) "
-            f"[{card}]")
-        return 0
-    log("knn_l2 kernel: candidate splits per size " + ", ".join(
-        f"N={n}: {kn.kernel_splits(n, KNN_K)}" for n in KNN_SIZES) + f" [{card}]")
     for name in ("dense_layer", "transition"):
         blocks, smem = dn.bf16_occupancy(name)
         log(f"{name} bf16 kernel: {blocks} block(s) of 256 threads per SM, "
             f"{smem} bytes of shared memory per block [{card}]")
+    set_cuda_numerics()
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(0)
     gen_dev = torch.Generator(device=dev).manual_seed(0)
 
     results = {}

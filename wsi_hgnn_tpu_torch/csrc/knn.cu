@@ -7,10 +7,14 @@
 // to the lower candidate index; with fewer live candidates than k the
 // FLT_MAX entries fill the rest in index order.
 //
-// What bounds it on the H100: 2*N^2*D f32 operations (8.6 GFLOP at N=2048,
-// D=1024) against 67 TFLOP/s of f32 FMA, about 0.13 ms; the bytes (N*D read
-// once) take a few microseconds. So it is an f32 GEMM with a top-k
-// epilogue, and the design is about keeping all 132 SMs issuing FMAs.
+// What bounds it on the H100: the f32 operations of the symmetric Gram
+// matrix x.x^T, N*(N+1)*D of them (its upper triangle, diagonal = the row
+// norms; 4.3 GFLOP at N=2048, D=1024), against 67 TFLOP/s of f32 FMA,
+// about 0.064 ms; the bytes (N*D read once) take a few microseconds. So it
+// is an f32 GEMM with a top-k epilogue, and the design is about keeping all
+// 132 SMs issuing FMAs. This design computes every pair twice (once per
+// query row), so it can reach at most half of that bound; a symmetric
+// design (tile pairs j >= i, each merged into both row sets) would not.
 // Distances stay in f32 FMA on purpose: TF32 or bf16 tensor cores would
 // move distances by more than the gaps between neighbours and change
 // neighbour sets against the JAX package.
