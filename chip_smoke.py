@@ -22,9 +22,17 @@
    ms/launch, bound and share of the bound; host clock per stage),
    and a torch.profiler pass over the last request: the device's busy
    share and the kernels that took the most device time.
+5. The training slice at the same width, read from that config file:
+   12 seeded synthetic slides of 1000-3000 patches whose graphs are
+   built on the card (one KNN launch each) and written as `.npz`;
+   `GNNTrainer` for 2 epochs, `HomoGraphEvaluator` on the checkpoint it
+   wrote, `SlidePredictor(checkpoint_path=)` on the test slides, and one
+   train step on the card against the same step on the CPU. Counters are
+   zeroed before the dataset is built and read after the evaluation.
 
-The line before the last is the kernels JSON, the last line the device
-JSON. Any failed check exits non-zero. Imports nothing of JAX.
+The line before the last is the kernels JSON (launches summed over the
+served requests and the training slice), the last line the device JSON.
+Any failed check exits non-zero. Imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -526,16 +534,17 @@ def slice_phase(torch, dev, card, kernels, gnn=GNN, requests=REQUESTS,
         + f"; served request {total:.1f} ms ({1e3 / total:.4g} slides/s, "
         f"{total / n0:.4g} ms/patch), stages sum {sum(stage_ms.values()):.1f}"
         f" ms; peak device memory {peak_gib:.2f} GiB [{card}]")
-    profile_request(torch, pred, slides[-1], requests[-1][0], card)
+    profile_span(torch, lambda: pred.predict_many_pixels([slides[-1]]),
+                 f"the {requests[-1][0]}-patch request", card)
     return launches
 
 
 PORT_KERNELS = ("knn_l2", "dense_layer", "transition")   # csrc kernel names
 
 
-def profile_request(torch, pred, px, n: int, card: str, top: int = 12):
-    """torch.profiler over one served request: the device's busy share (the
-    union of its kernel and copy intervals over the request's host-clock
+def profile_span(torch, fn, what: str, card: str, top: int = 12):
+    """torch.profiler over one call of `fn`: the device's busy share (the
+    union of its kernel and copy intervals over the call's host-clock
     span) and the kernels that took the most device time, plus the port's
     own kernels wherever they rank. A profiler that records no device
     activity leaves both unmeasured; it fails nothing."""
@@ -543,19 +552,19 @@ def profile_request(torch, pred, px, n: int, card: str, top: int = 12):
     from torch.profiler import ProfilerActivity, profile, record_function
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        with record_function("served_request"):
-            pred.predict_many_pixels([px])
+        with record_function("profiled_span"):
+            fn()
             torch.cuda.synchronize()
     events = prof.events()
-    span = next(e.time_range for e in events if e.name == "served_request"
+    span = next(e.time_range for e in events if e.name == "profiled_span"
                 and e.device_type == DeviceType.CPU)
     # the annotation also appears on the device's timeline: not a kernel
     dev = sorted((e.time_range.start, e.time_range.end, e.name)
                  for e in events if e.device_type == DeviceType.CUDA
-                 and e.name != "served_request")
+                 and e.name != "profiled_span")
     if not dev:
-        log(f"profile of the {n}-patch request: torch.profiler recorded no "
-            f"device activity; busy share not measured [{card}]")
+        log(f"profile of {what}: torch.profiler recorded no device "
+            f"activity; busy share not measured [{card}]")
         return
     busy, reach, per_name = 0.0, span.start, {}
     for start, end, name in dev:
@@ -566,7 +575,7 @@ def profile_request(torch, pred, px, n: int, card: str, top: int = 12):
         per_name[name] = per_name.get(name, 0.0) + (end - start)
     dev_total = sum(per_name.values())
     wall = span.end - span.start
-    log(f"profile of the {n}-patch request (torch.profiler, CPU+CUDA): "
+    log(f"profile of {what} (torch.profiler, CPU+CUDA): "
         f"span {wall / 1e3:.1f} ms, device busy {busy / 1e3:.1f} ms "
         f"({busy / wall:.3f} of the span), device time summed over "
         f"{len(dev)} kernels and copies {dev_total / 1e3:.1f} ms [{card}]")
@@ -576,6 +585,231 @@ def profile_request(torch, pred, px, n: int, card: str, top: int = 12):
     for name, us in ranked[top:]:   # the port's own kernels, wherever they rank
         if any(k in name for k in PORT_KERNELS):
             log(f"  {us / 1e3:9.2f} ms {us / dev_total:6.3f}  {name[:100]}")
+
+
+# ---------------------------------------------------------------------------
+# the training slice: train, checkpoint, evaluate, serve the checkpoint
+# ---------------------------------------------------------------------------
+HEAT4_CONFIG = "configs/BRCA/HEAT4_kimia_classification.yml"
+TRAIN_SPLITS = (("train", 6), ("val", 3), ("test", 3))   # slides per split
+TRAIN_N = (1000, 3000)     # patches per synthetic slide, drawn uniformly
+TRAIN_EPOCHS = 2
+
+
+def write_cohort(torch, dev, root: Path, in_dim: int, n_range, seed=0):
+    """Seeded synthetic slides under TCGA barcodes: tumour slides (odd
+    index) have their features shifted by +0.5, node types are uniform in
+    [0, 6). Each graph is built on `dev` by build_lattice_device (one KNN
+    per slide) and written by save_graph_npz; the even slides go on the
+    normal list. Returns {split: list file}."""
+    import numpy as np
+
+    from wsi_hgnn_tpu_torch.data.datasets import save_graph_npz
+    from wsi_hgnn_tpu_torch.models.lattice import build_lattice_device
+    from wsi_hgnn_tpu_torch.utils import to_numpy, to_torch
+
+    rng = np.random.RandomState(seed)
+    splits, normals, i = {}, [], 0
+    for split, count in TRAIN_SPLITS:
+        paths = []
+        for _ in range(count):
+            n = int(rng.randint(n_range[0], n_range[1] + 1))
+            feat = (rng.randn(n, in_dim) + 0.5 * (i % 2)).astype(np.float32)
+            types = rng.randint(0, N_TYPES, n).astype(np.int32)
+            g = build_lattice_device(
+                to_torch(feat[None], dev), to_torch(types[None], dev),
+                torch.ones(1, n, dtype=torch.bool, device=dev), RADIUS,
+                N_TYPES)
+            barcode = f"TCGA-XX-{i:04d}-01Z-00-DX1"
+            path = root / f"{barcode}.npz"
+            save_graph_npz(path, feat, np.repeat(np.arange(n), RADIUS - 1),
+                           to_numpy(g.idx[0]).reshape(-1), node_type=types,
+                           esign=to_numpy(g.esign[0]).reshape(-1),
+                           sim=to_numpy(g.sim[0]).reshape(-1))
+            paths.append(str(path))
+            if i % 2 == 0:
+                normals.append(barcode[:16])
+            i += 1
+        splits[split] = root / f"{split}.txt"
+        splits[split].write_text("\n".join(paths) + "\n")
+    (root / "normal.txt").write_text("\n".join(normals) + "\n")
+    return splits
+
+
+def step_on_card_vs_cpu(torch, dev, cfg, data, k: int, cap: int):
+    """One train step from the same seeded weights, batch, augmentation and
+    dropout masks, on the card and on the CPU plain path: (loss relative
+    error, max |param difference|)."""
+    import copy
+
+    from wsi_hgnn_tpu_torch import convert
+    from wsi_hgnn_tpu_torch.config import (parse_gnn_model, parse_loss,
+                                           parse_optimizer)
+    from wsi_hgnn_tpu_torch.data.lattice_loader import (LatticeLoader,
+                                                        lattice_to_torch)
+    from wsi_hgnn_tpu_torch.models.lattice import TrainMasks, draw_train_masks
+    from wsi_hgnn_tpu_torch.train import lattice_train_step
+    from wsi_hgnn_tpu_torch.utils import to_torch
+
+    cpu = torch.device("cpu")
+    g_np, labels, weights = LatticeLoader(data, 2, k, cap, shuffle=False
+                                          )._make_batch([0, 1])
+    gen = torch.Generator().manual_seed(7)
+    model = convert.init_flax_like_(parse_gnn_model(cfg["GNN"]), seed=5)
+    g_cpu = lattice_to_torch(g_np, cpu)
+    masks = draw_train_masks(g_cpu, gen)
+    drops = model.draw_dropout_masks(g_cpu, gen)
+    loss_fn = parse_loss(cfg["train"])
+    out = {}
+    for device, m in ((cpu, copy.deepcopy(model)), (dev, model.to(dev))):
+        loss, _ = lattice_train_step(
+            m, parse_optimizer(cfg["optimizer"], m.parameters()), loss_fn,
+            lattice_to_torch(g_np, device),
+            to_torch(labels, device, torch.int64), to_torch(weights, device),
+            masks=TrainMasks(*(t.to(device) for t in masks)),
+            drop_masks=[t.to(device) for t in drops])
+        out[device.type] = (float(loss), [p.detach().cpu() for p in
+                                          m.parameters()])
+    (l_cpu, p_cpu), (l_dev, p_dev) = out["cpu"], out[dev.type]
+    diff = max(float((a - b).abs().max()) for a, b in zip(p_dev, p_cpu))
+    return abs(l_dev - l_cpu) / abs(l_cpu), diff
+
+
+def train_phase(torch, dev, card, kernels, n_range=TRAIN_N, gnn=None):
+    """Build and write the synthetic cohort, train the config's HEAT4 for
+    two epochs, evaluate the checkpoint, serve it; check the checkpoint
+    contract and that trainer, evaluator, predictor and the CPU agree.
+    Returns the launch counts of the cohort build, training and
+    evaluation. `gnn` overrides GNN keys (a small CPU rehearsal)."""
+    import math
+    import tempfile
+
+    import numpy as np
+
+    from wsi_hgnn_tpu_torch.config import load_config
+    from wsi_hgnn_tpu_torch.data.lattice_loader import lattice_to_torch
+    from wsi_hgnn_tpu_torch.serve import SlidePredictor
+    from wsi_hgnn_tpu_torch.train import GNNTrainer, HomoGraphEvaluator
+    from wsi_hgnn_tpu_torch.utils import to_torch
+
+    cfg = load_config(ROOT / HEAT4_CONFIG)
+    cfg["GNN"].update(gnn or {})
+    cfg["train"]["num_epochs"] = TRAIN_EPOCHS
+    g = cfg["GNN"]
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        root = Path(tmp)
+        cfg["checkpoint"]["path"] = str(root / "checkpoint")
+        # ---- the main path: counters from 0 ----------------------------
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        splits = write_cohort(torch, dev, root, int(g["in_dim"]), n_range)
+        t_data = time.perf_counter() - t0
+        cfg["datasets"].update(
+            train_path=str(splits["train"]), valid_path=str(splits["val"]),
+            eval_path=str(splits["test"]),
+            normal_path=str(root / "normal.txt"))
+
+        trainer = GNNTrainer(cfg, seed=611, device=dev)
+        losses, step_ms = [], []
+        step = trainer.train_step
+
+        def timed_step(graph, labels, weights):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            loss, prob = step(graph, labels, weights)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t) * 1e3)
+            losses.append(float(loss))
+            return loss, prob
+
+        trainer.train_step = timed_step
+        t = time.perf_counter()
+        stats = trainer.train()
+        t_train = time.perf_counter() - t
+        evaluator = HomoGraphEvaluator(cfg, verbose=False, device=dev)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        got = evaluator.eval()
+        torch.cuda.synchronize()
+        n_test = len(evaluator.test_data)
+        eval_ms = (time.perf_counter() - t) * 1e3 / n_test
+        launches = kernels.launch_counts()
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+
+        # ---- checks -----------------------------------------------------
+        n_steps = TRAIN_EPOCHS * -(-TRAIN_SPLITS[0][1] // 2)
+        check(len(losses) == n_steps and all(map(math.isfinite, losses)),
+              f"train losses {losses}: want {n_steps} finite")
+        ckpt = Path(cfg["checkpoint"]["path"])
+        files = sorted(p.name for p in ckpt.iterdir())
+        check(files == ["configs.json", f"model_v{TRAIN_EPOCHS}.msgpack",
+                        "training_stats.json", "version.txt"],
+              f"checkpoint directory holds {files}")
+        check((ckpt / "version.txt").read_text() == f"{TRAIN_EPOCHS}\n",
+              "version.txt is not the last epoch")
+        lines = (ckpt / "training_stats.json").read_text().splitlines()
+        check([json.loads(x)["Epoch"] for x in lines]
+              == list(range(1, TRAIN_EPOCHS + 1)),
+              f"training_stats.json epochs {lines}")
+        names = ("Accuracy", "F1", "Precision", "Recall", "AUC")
+        want = [stats[f"Testing {m}"] for m in names]
+        # the stats are rounded to 5 digits when written
+        check(all(abs(a - b) <= 1e-5 for a, b in zip(got, want)),
+              f"evaluator metrics {got} != the trainer's last test {want}")
+        label = evaluator.last_metrics["label"]
+        check(len(set(label.tolist())) == 2, "test split lacks a class")
+
+        pred = SlidePredictor(cfg, radius=RADIUS, n_node_types=N_TYPES,
+                              checkpoint_path=str(ckpt), device=dev)
+        served = []
+        for path in evaluator.test_data.graph_paths:
+            with np.load(path) as z:
+                served.append(pred.predict(z["feat"], z["node_type"]))
+        err = float(np.abs(np.stack(served)
+                           - evaluator.last_metrics["prob"]).max())
+        log(f"train phase: SlidePredictor(checkpoint_path=) vs evaluator "
+            f"probabilities on {n_test} test slides: max|err| {err:.3g} "
+            f"(atol 1e-4)")
+        check(err <= 1e-4, f"served checkpoint differs from the evaluator by "
+              f"{err}")
+
+        # the evaluator's forward alone, on one batch of all 3 test slides;
+        # and the first two training slides as one train batch
+        loader = evaluator._loaders[evaluator.test_data]
+        graph = lattice_to_torch(loader._make_batch(range(n_test))[0], dev)
+        fwd_ms = cuda_ms(lambda: evaluator._fwd(graph), reps=10) / n_test
+        g_np, labels, weights = trainer.loader._make_batch([0, 1])
+        batch = (lattice_to_torch(g_np, dev), to_torch(labels, dev, torch.int64),
+                 to_torch(weights, dev))
+
+        rel, dp = step_on_card_vs_cpu(torch, dev, cfg, trainer.train_data,
+                                      trainer.k, trainer.loader.node_capacity)
+        lr = float(cfg["optimizer"]["lr"])
+        log(f"train phase: one step card vs CPU plain path: loss rel err "
+            f"{rel:.3g} (<= 1e-5), max|param diff| {dp:.3g} (<= 2 lr = "
+            f"{2 * lr:.3g})")
+        check(rel <= 1e-5 and dp <= 2 * lr,
+              f"card train step differs from the CPU: loss {rel}, params {dp}")
+
+    cap = trainer.loader.node_capacity
+    log(f"train phase: GNN {g['name']} in {g['in_dim']} hidden "
+        f"{g['hidden_dim']} heads {g['n_heads']} layers {g['num_layers']}, "
+        f"batch {cfg['train']['batch_size']} x {cap} nodes, k {trainer.k}; "
+        f"cohort of {sum(c for _, c in TRAIN_SPLITS)} slides built and "
+        f"written in {t_data:.1f} s; {TRAIN_EPOCHS} epochs in {t_train:.1f} s;"
+        f" losses {[round(x, 5) for x in losses]}; test metrics "
+        f"{[round(x, 5) for x in got]}; launches {launches}")
+    log(f"timing train: {float(np.median(step_ms[1:])):.2f} ms per train step"
+        f" (median of steps 2..{len(step_ms)}, host clock, synchronised; "
+        f"first step {step_ms[0]:.1f} ms), {eval_ms:.1f} ms per eval slide "
+        f"(HomoGraphEvaluator.eval over {n_test} slides: npz load, pack, "
+        f"forward; the forward alone {fwd_ms:.2f} ms per slide, CUDA events)"
+        f", peak device memory of the phase {peak_gib:.2f} GiB [{card}]")
+    profile_span(torch, lambda: step(*batch),
+                 f"one train step (batch 2 x {cap} nodes)", card)
+    return launches
 
 
 def main() -> int:
@@ -633,6 +867,8 @@ def main() -> int:
             f"[{card}]")
 
     launches = slice_phase(torch, dev, card, kernels)
+    trained = train_phase(torch, dev, card, kernels)
+    launches = {k: launches[k] + trained[k] for k in launches}
 
     # library_ms is null: no single PyTorch call computes any of the three
     # functions (a top-k KNN, or a fused affine + GEMM + conv / pool chain)

@@ -1,6 +1,6 @@
 """Card-only tests of the port: each hand-written CUDA kernel against its
-plain PyTorch version on the card, and the serving path on the card
-against the CPU path.
+plain PyTorch version on the card, and the serving and training paths on
+the card against the CPU path.
 
 Marked `gpu`; each test asks the `cuda` fixture for the card and skips
 without one, so every process collects the same tests. The module
@@ -13,12 +13,18 @@ import pytest
 import torch
 
 from wsi_hgnn_tpu_torch import convert, kernels
-from wsi_hgnn_tpu_torch.config import parse_lattice_twin
+from wsi_hgnn_tpu_torch.config import (parse_lattice_twin, parse_loss,
+                                       parse_optimizer)
+from wsi_hgnn_tpu_torch.data.datasets import save_graph_npz
+from wsi_hgnn_tpu_torch.graph import ops as gops
 from wsi_hgnn_tpu_torch.kernels import densenet as kdn
 from wsi_hgnn_tpu_torch.kernels import knn as kknn
+from wsi_hgnn_tpu_torch.models import lattice as tlat
 from wsi_hgnn_tpu_torch.models.featurizers import (KimiaNet, fuse_kimianet,
                                                    kimianet_fused_apply)
 from wsi_hgnn_tpu_torch.serve import SlidePredictor
+from wsi_hgnn_tpu_torch.train import (GNNTrainer, HomoGraphEvaluator,
+                                      lattice_train_step)
 from wsi_hgnn_tpu_torch.utils import set_cuda_numerics
 
 pytestmark = pytest.mark.gpu
@@ -236,3 +242,108 @@ def test_slide_predictor_on_card_matches_cpu(cuda):
     got = on_card.predict_many(slides)
     assert kknn.knn_l2_fused.launches == before + 2  # one KNN per slide
     np.testing.assert_allclose(got, on_cpu.predict_many(slides), atol=1e-4)
+
+
+SMALL_GNN = {"name": "HEAT4", "n_node_types": 6, "num_layers": 2,
+             "in_dim": 32, "hidden_dim": 16, "out_dim": 2, "n_heads": 2,
+             "feat_drop": 0.2, "graph_pooling_type": "mean"}
+
+
+def test_typed_linear_ragged_on_card_matches_onehot(cuda):
+    """Forward and backward of the grouped per-type product on the card
+    against the one-hot form (type 5 has no rows)."""
+    rng = np.random.RandomState(7)
+    arrays = (rng.randn(3000, 64), rng.randn(6, 64, 48), rng.randn(6, 48))
+    types = torch.from_numpy(rng.randint(0, 5, 3000)).to(cuda)
+    out = []
+    for fn in (gops.typed_linear, gops.typed_linear_ragged):
+        feat, w, b = (torch.tensor(a, dtype=torch.float32, device=cuda,
+                                   requires_grad=True) for a in arrays)
+        y = fn(feat, types, w, b)
+        (y * torch.linspace(-1, 1, y.numel(), device=cuda).reshape(y.shape)
+         ).sum().backward()
+        out.append((y.detach(), feat.grad, w.grad, b.grad))
+    for got, want in zip(out[1], out[0]):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    assert not out[1][2][5].any()
+
+
+def test_train_step_on_card_matches_cpu(cuda):
+    """One Adam step from the same weights, batch, augmentation and dropout
+    masks: loss to 1e-5 relative, parameters within 2 lr (Adam's first
+    step moves each parameter by about +-lr)."""
+    rng = np.random.RandomState(4)
+    b, n = 2, 400
+    g_cpu = tlat.build_lattice_device(
+        torch.from_numpy(rng.randn(b, n, 32).astype(np.float32)),
+        torch.from_numpy(rng.randint(0, 6, (b, n))),
+        torch.arange(n)[None, :] < torch.tensor([[n], [n - 37]]), 9, 6)
+    model = convert.init_flax_like_(parse_lattice_twin(SMALL_GNN), seed=0)
+    gen = torch.Generator().manual_seed(1)
+    masks = tlat.draw_train_masks(g_cpu, gen)
+    drops = model.draw_dropout_masks(g_cpu, gen)
+    optim = {"opt_method": "ADAM", "lr": 1e-3, "weight_decay": 5e-3}
+    loss_fn = parse_loss({"loss": "CE"})
+    labels, weights = torch.tensor([0, 1]), torch.tensor([1.0, 1.0])
+    res = []
+    for dev, m in ((torch.device("cpu"), model),
+                   (cuda, convert.init_flax_like_(
+                       parse_lattice_twin(SMALL_GNN), seed=0).to(cuda))):
+        loss, prob = lattice_train_step(
+            m, parse_optimizer(optim, m.parameters()), loss_fn,
+            tlat.LatticeGraph(*(a.to(dev) for a in g_cpu)), labels.to(dev),
+            weights.to(dev), masks=tlat.TrainMasks(*(a.to(dev) for a in masks)),
+            drop_masks=[a.to(dev) for a in drops])
+        res.append((float(loss), prob.cpu(),
+                    [p.detach().cpu() for p in m.parameters()]))
+    (l_cpu, p_cpu, w_cpu), (l_dev, p_dev, w_dev) = res
+    assert abs(l_dev - l_cpu) <= 1e-5 * abs(l_cpu)
+    torch.testing.assert_close(p_dev, p_cpu, rtol=1e-5, atol=1e-6)
+    for a, c in zip(w_dev, w_cpu):
+        assert (a - c).abs().max() <= 2 * optim["lr"]
+
+
+def test_trainer_one_epoch_on_card(cuda, tmp_path):
+    """The whole lattice trainer for one epoch on 4 slides whose graphs
+    were built on the card, then the evaluator on its checkpoint on the
+    card and on the CPU."""
+    rng = np.random.RandomState(2)
+    paths, normals = [], []
+    for i in range(4):
+        n = int(rng.randint(200, 500))
+        feat = (rng.randn(n, 32) + 0.5 * (i % 2)).astype(np.float32)
+        types = rng.randint(0, 6, n).astype(np.int32)
+        before = kknn.knn_l2_fused.launches
+        g = tlat.build_lattice_device(
+            torch.from_numpy(feat[None]).to(cuda),
+            torch.from_numpy(types[None]).to(cuda),
+            torch.ones(1, n, dtype=torch.bool, device=cuda), 9, 6)
+        assert kknn.knn_l2_fused.launches == before + 1
+        barcode = f"TCGA-XX-{i:04d}-01Z-00-DX1"
+        paths.append(str(tmp_path / f"{barcode}.npz"))
+        save_graph_npz(paths[-1], feat, np.repeat(np.arange(n), 8),
+                       g.idx[0].reshape(-1).cpu().numpy(), node_type=types,
+                       esign=g.esign[0].reshape(-1).cpu().numpy(),
+                       sim=g.sim[0].reshape(-1).cpu().numpy())
+        if i % 2 == 0:
+            normals.append(barcode[:16])
+    (tmp_path / "split.txt").write_text("\n".join(paths) + "\n")
+    (tmp_path / "normal.txt").write_text("\n".join(normals) + "\n")
+    split = str(tmp_path / "split.txt")
+    cfg = {"datasets": {"dataset": "BRCA", "task": "cancer classification",
+                        "train_path": split, "eval_path": split,
+                        "valid_path": split,
+                        "normal_path": str(tmp_path / "normal.txt")},
+           "checkpoint": {"path": str(tmp_path / "ckpt")},
+           "optimizer": {"opt_method": "ADAM", "lr": 1e-3,
+                         "weight_decay": 5e-3},
+           "GNN": dict(SMALL_GNN),
+           "train": {"num_epochs": 1, "batch_size": 2, "loss": "CE"}}
+    stats = GNNTrainer(cfg, seed=0, device=cuda).train()
+    assert stats["Epoch"] == 1 and np.isfinite(stats["Train Loss: "])
+    assert (tmp_path / "ckpt" / "model_v1.msgpack").exists()
+    on_card = HomoGraphEvaluator(cfg, verbose=False, device=cuda)
+    on_cpu = HomoGraphEvaluator(cfg, verbose=False, device="cpu")
+    np.testing.assert_allclose(on_card.eval(), on_cpu.eval(), atol=1e-6)
+    np.testing.assert_allclose(on_card.last_metrics["prob"],
+                               on_cpu.last_metrics["prob"], atol=1e-4)

@@ -111,15 +111,23 @@ def test_feature_requests_are_grouping_invariant(served):
     pred.warmup(64)
 
 
-def test_entry_points_never_fall_back_to_cpu(monkeypatch):
+def test_entry_points_never_fall_back_to_cpu(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         resolve_device(None)
     cfg = {"GNN": dict(GNN)}
     with pytest.raises(RuntimeError, match="no CUDA device"):
         SlidePredictor(cfg, variables={"params": {}})
-    with pytest.raises(NotImplementedError, match="msgpack"):
-        SlidePredictor(cfg, checkpoint_path="ckpt", device="cpu")
+    with pytest.raises(FileNotFoundError, match="no checkpoint"):
+        SlidePredictor(cfg, checkpoint_path=str(tmp_path / "ckpt"),
+                       device="cpu")
+    from wsi_hgnn_tpu_torch import main
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main.main(["-config", str(ROOT / "configs/BRCA/"
+                                  "HEAT4_kimia_classification.yml")])
+    with pytest.raises(NotImplementedError, match="item 12"):
+        main.main(["-mode", "graph_explain", "-device", "cpu"])
     with pytest.raises(NotImplementedError, match="lattice twin"):
         SlidePredictor({"GNN": dict(GNN, name="GCN")}, variables={},
                        device="cpu")
@@ -144,9 +152,12 @@ def test_chip_smoke_fails_without_a_card(tmp_path):
 
 def test_port_imports_no_jax():
     code = ("import sys, wsi_hgnn_tpu_torch.serve, wsi_hgnn_tpu_torch.convert,"
-            " wsi_hgnn_tpu_torch.models.featurizers, wsi_hgnn_tpu_torch.kernels;"
+            " wsi_hgnn_tpu_torch.models.featurizers, wsi_hgnn_tpu_torch.kernels,"
+            " wsi_hgnn_tpu_torch.config, wsi_hgnn_tpu_torch.data,"
+            " wsi_hgnn_tpu_torch.train, wsi_hgnn_tpu_torch.main,"
+            " wsi_hgnn_tpu_torch.profiling;"
             " bad = [m for m in sys.modules if m.split('.')[0] in"
-            " ('jax', 'flax', 'optax', 'wsi_hgnn_tpu')];"
+            " ('jax', 'flax', 'optax', 'wsi_hgnn_tpu', 'yaml', 'msgpack')];"
             " assert not bad, bad")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)

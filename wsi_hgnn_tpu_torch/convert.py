@@ -106,6 +106,44 @@ def to_flax_variables(module: nn.Module) -> Dict:
     return out
 
 
+def params_to_flax(module: nn.Module, values: Dict[str, torch.Tensor]
+                   ) -> Dict:
+    """A flax 'params' subtree in flax layout from `values`, tensors
+    shaped like `module`'s parameters and keyed by their names
+    (`module.named_parameters()`): how optimizer moments are written in
+    the flax tree's layout."""
+    out: Dict = {}
+    for owner, keys, leaf, _ in _leaves(module):
+        coll, name = _leaf(owner, leaf)
+        if coll != "params":
+            continue
+        node = out
+        for key in keys:
+            node = node.setdefault(key, {})
+        arr = values[".".join(keys + [leaf])].detach().float().cpu().numpy()
+        node[name] = np.ascontiguousarray(_to_flax_layout(owner, leaf, arr))
+    return out
+
+
+def params_from_flax(module: nn.Module, tree: Dict) -> Dict[str, np.ndarray]:
+    """The inverse of params_to_flax: torch-layout f32 arrays keyed by
+    parameter name, read from a flax 'params' subtree (shape-checked)."""
+    out: Dict[str, np.ndarray] = {}
+    for owner, keys, leaf, t in _leaves(module):
+        coll, name = _leaf(owner, leaf)
+        if coll != "params":
+            continue
+        node = tree
+        for key in keys:
+            node = node[key]
+        arr = _to_torch_layout(owner, leaf, np.asarray(node[name], np.float32))
+        if tuple(arr.shape) != tuple(t.shape):
+            raise ValueError(f"{'/'.join(keys)}/{name}: flax shape "
+                             f"{arr.shape} vs torch {tuple(t.shape)}")
+        out[".".join(keys + [leaf])] = np.ascontiguousarray(arr)
+    return out
+
+
 # flax's lecun_normal: a normal truncated to +-2 std, rescaled by the std of
 # that truncated normal so the variance is 1/fan_in
 _TRUNC_STD = 0.87962566103423978

@@ -1,5 +1,5 @@
 """Per-node-type linear maps (counterpart of the typed-linear helpers of
-wsi_hgnn_tpu/graph/ops.py), forward only."""
+wsi_hgnn_tpu/graph/ops.py), differentiable."""
 from __future__ import annotations
 
 from typing import List, NamedTuple, Optional
@@ -42,13 +42,14 @@ def typed_linear_ragged(feat: torch.Tensor, node_type: torch.Tensor,
                         tsort: Optional[TypeSort] = None) -> torch.Tensor:
     """typed_linear as one product per type over type-sorted rows: 1x the
     FLOPs, no [T, N, H] intermediate; equal to typed_linear up to f32
-    reassociation."""
+    reassociation. The per-type products are concatenated in sorted order
+    (no `out=` buffer), so autograd runs through them."""
     if tsort is None:
         tsort = make_type_sort(node_type, weights.shape[0])
     xs = feat[tsort.perm]
-    ys = feat.new_empty((feat.shape[0], weights.shape[2]))
-    for t in range(weights.shape[0]):
-        lo, hi = tsort.offsets[t], tsort.offsets[t + 1]
-        if hi > lo:
-            torch.matmul(xs[lo:hi], weights[t], out=ys[lo:hi])
+    parts = [xs[lo:hi] @ weights[t]
+             for t, (lo, hi) in enumerate(zip(tsort.offsets[:-1],
+                                             tsort.offsets[1:]))
+             if hi > lo]
+    ys = torch.cat(parts) if parts else feat.new_zeros((0, weights.shape[2]))
     return ys[tsort.inv] + biases[node_type.long()]

@@ -1,8 +1,11 @@
 """Models of the port: lattice HEAT, layers, CNN featurizers."""
 from .lattice import (HEATLayerLattice, HEATNet2Lattice, HEATNet4Lattice,
-                      LatticeGraph, build_lattice_device)
+                      LatticeGraph, TrainMasks, apply_train_masks,
+                      build_lattice_device, draw_train_masks,
+                      lattice_train_transform)
 from .layers import LinearAttentionBlock, TypedDense, TypedHeads
 
 __all__ = ["HEATLayerLattice", "HEATNet2Lattice", "HEATNet4Lattice",
-           "LatticeGraph", "LinearAttentionBlock", "TypedDense", "TypedHeads",
-           "build_lattice_device"]
+           "LatticeGraph", "LinearAttentionBlock", "TrainMasks", "TypedDense",
+           "TypedHeads", "apply_train_masks", "build_lattice_device",
+           "draw_train_masks", "lattice_train_transform"]

@@ -9,9 +9,11 @@ device and the lattice HEAT model answers with softmax probabilities.
 Occupancy is per slide (presence='graph'), so a response never depends on
 which other requests share its group.
 
-Not ported yet (ROADMAP.md): reading flax-msgpack checkpoints (pass
-`variables=`), the TypedGraph serving path for models without a lattice
-twin, and the micro-batching HTTP server.
+The weights come from a checkpoint directory written by either package's
+trainer (its latest version), or as a flax-layout tree (`variables=`).
+
+Not ported yet (ROADMAP.md): the TypedGraph serving path for models
+without a lattice twin, and the micro-batching HTTP server.
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ from . import convert
 from .config import parse_lattice_twin
 from .graph.typed_graph import bucket_size
 from .models.lattice import build_lattice_device
+from .train.checkpoint import CheckpointManager
 from .utils import resolve_device, set_cuda_numerics, to_numpy, to_torch
 
 
@@ -33,18 +36,18 @@ class SlidePredictor:
     """Serves per-slide predictions of a trained lattice HEAT model.
 
     `config` is the training config dict (its GNN section picks the
-    model); `variables` is the model's flax-layout variable tree as numpy
-    arrays. The predictor runs on `device` ('cuda' unless the caller asks
-    for 'cpu')."""
+    model). The weights are the latest version under `checkpoint_path`,
+    or the model's flax-layout variable tree `variables` (numpy), or, when
+    neither is given, the latest version under config['checkpoint']
+    ['path']. The predictor runs on `device` ('cuda' unless the caller
+    asks for 'cpu')."""
 
     def __init__(self, config: Dict, radius: int = 9, n_node_types: int = 6,
                  checkpoint_path: Optional[str] = None,
                  knn_impl: str = "exact", variables: Optional[Dict] = None,
                  device=None):
-        if variables is None or checkpoint_path is not None:
-            raise NotImplementedError(
-                "reading flax-msgpack checkpoints is not ported yet "
-                "(ROADMAP.md); pass the variable tree as variables=")
+        if variables is not None and checkpoint_path is not None:
+            raise ValueError("pass checkpoint_path or variables, not both")
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             set_cuda_numerics()
@@ -54,6 +57,9 @@ class SlidePredictor:
                 f"{config['GNN']['name']!r} has no lattice twin; the "
                 "TypedGraph serving path is not ported yet (ROADMAP.md)")
         model.presence = "graph"  # per-slide occupancy: grouping-invariant
+        if variables is None:
+            path = checkpoint_path or config["checkpoint"]["path"]
+            variables = CheckpointManager(path).restore_variables()
         convert.load_flax_variables(model, variables)
         self.model = model.to(self.device).eval()
         self.config = config
