@@ -25,14 +25,27 @@
 5. The training slice at the same width, read from that config file:
    12 seeded synthetic slides of 1000-3000 patches whose graphs are
    built on the card (one KNN launch each) and written as `.npz`;
-   `GNNTrainer` for 2 epochs, `HomoGraphEvaluator` on the checkpoint it
-   wrote, `SlidePredictor(checkpoint_path=)` on the test slides, and one
-   train step on the card against the same step on the CPU. Counters are
-   zeroed before the dataset is built and read after the evaluation.
+   `GNNTrainer` for 2 epochs on the lattice, `HomoGraphEvaluator` on the
+   checkpoint it wrote, `SlidePredictor(checkpoint_path=)` on the test
+   slides, and one train step on the card against the same step on the
+   CPU. Counters are zeroed before the dataset is built and read after
+   the evaluation.
+6. The zoo on the same cohort (also written untyped for the homogeneous
+   models): GCN, GAT, GIN, GCN_NTPool, HetRGCN and HGT at the width of
+   their configs/BRCA/<name>_kimia_classification.yml, and HEAT4 with
+   `train.lattice: off`, each through `GNNTrainer` on the TypedGraph
+   path (1 epoch, HGT 2), `HomoGraphEvaluator` (equal to the trainer's
+   last test metrics), `SlidePredictor(checkpoint_path=)` on the test
+   slides' features with each graph rebuilt on the card (equal to the
+   evaluator, one KNN launch per slide), and one step on the card
+   against the CPU; ms per train step, eval ms per slide and peak device
+   memory per family, and a torch.profiler pass over one HGT step.
+   Counters are zeroed before the phase and read after it.
 
 The line before the last is the kernels JSON (launches summed over the
-served requests and the training slice), the last line the device JSON.
-Any failed check exits non-zero. Imports nothing of JAX.
+served requests, the training slice and the zoo's served slides), the
+last line the device JSON. Any failed check exits non-zero. Imports
+nothing of JAX.
 """
 from __future__ import annotations
 
@@ -40,6 +53,7 @@ import argparse
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -558,10 +572,12 @@ def profile_span(torch, fn, what: str, card: str, top: int = 12):
     events = prof.events()
     span = next(e.time_range for e in events if e.name == "profiled_span"
                 and e.device_type == DeviceType.CPU)
-    # the annotation also appears on the device's timeline: not a kernel
+    # annotations (this span's, the optimizer's record_function ranges)
+    # also appear on the device's timeline: they are not kernels
     dev = sorted((e.time_range.start, e.time_range.end, e.name)
                  for e in events if e.device_type == DeviceType.CUDA
-                 and e.name != "profiled_span")
+                 and e.name != "profiled_span"
+                 and not getattr(e, "is_user_annotation", False))
     if not dev:
         log(f"profile of {what}: torch.profiler recorded no device "
             f"activity; busy share not measured [{card}]")
@@ -643,7 +659,7 @@ def step_on_card_vs_cpu(torch, dev, cfg, data, k: int, cap: int):
     import copy
 
     from wsi_hgnn_tpu_torch import convert
-    from wsi_hgnn_tpu_torch.config import (parse_gnn_model, parse_loss,
+    from wsi_hgnn_tpu_torch.config import (parse_lattice_twin, parse_loss,
                                            parse_optimizer)
     from wsi_hgnn_tpu_torch.data.lattice_loader import (LatticeLoader,
                                                         lattice_to_torch)
@@ -655,7 +671,7 @@ def step_on_card_vs_cpu(torch, dev, cfg, data, k: int, cap: int):
     g_np, labels, weights = LatticeLoader(data, 2, k, cap, shuffle=False
                                           )._make_batch([0, 1])
     gen = torch.Generator().manual_seed(7)
-    model = convert.init_flax_like_(parse_gnn_model(cfg["GNN"]), seed=5)
+    model = convert.init_flax_like_(parse_lattice_twin(cfg["GNN"]), seed=5)
     g_cpu = lattice_to_torch(g_np, cpu)
     masks = draw_train_masks(g_cpu, gen)
     drops = model.draw_dropout_masks(g_cpu, gen)
@@ -675,14 +691,15 @@ def step_on_card_vs_cpu(torch, dev, cfg, data, k: int, cap: int):
     return abs(l_dev - l_cpu) / abs(l_cpu), diff
 
 
-def train_phase(torch, dev, card, kernels, n_range=TRAIN_N, gnn=None):
-    """Build and write the synthetic cohort, train the config's HEAT4 for
-    two epochs, evaluate the checkpoint, serve it; check the checkpoint
-    contract and that trainer, evaluator, predictor and the CPU agree.
-    Returns the launch counts of the cohort build, training and
-    evaluation. `gnn` overrides GNN keys (a small CPU rehearsal)."""
+def train_phase(torch, dev, card, kernels, root: Path, n_range=TRAIN_N,
+                gnn=None):
+    """Build and write the synthetic cohort under `root`, train the
+    config's HEAT4 for two epochs, evaluate the checkpoint, serve it;
+    check the checkpoint contract and that trainer, evaluator, predictor
+    and the CPU agree. Returns the launch counts of the cohort build,
+    training and evaluation, and the cohort's split lists. `gnn`
+    overrides GNN keys (a small CPU rehearsal)."""
     import math
-    import tempfile
 
     import numpy as np
 
@@ -696,102 +713,104 @@ def train_phase(torch, dev, card, kernels, n_range=TRAIN_N, gnn=None):
     cfg["GNN"].update(gnn or {})
     cfg["train"]["num_epochs"] = TRAIN_EPOCHS
     g = cfg["GNN"]
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
-        root = Path(tmp)
-        cfg["checkpoint"]["path"] = str(root / "checkpoint")
-        # ---- the main path: counters from 0 ----------------------------
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        kernels.reset_launch_counts()
-        t0 = time.perf_counter()
-        splits = write_cohort(torch, dev, root, int(g["in_dim"]), n_range)
-        t_data = time.perf_counter() - t0
-        cfg["datasets"].update(
-            train_path=str(splits["train"]), valid_path=str(splits["val"]),
-            eval_path=str(splits["test"]),
-            normal_path=str(root / "normal.txt"))
+    cfg["checkpoint"]["path"] = str(root / "checkpoint")
+    # ---- the main path: counters from 0 ----------------------------
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    splits = write_cohort(torch, dev, root, int(g["in_dim"]), n_range)
+    t_data = time.perf_counter() - t0
+    cfg["datasets"].update(
+        train_path=str(splits["train"]), valid_path=str(splits["val"]),
+        eval_path=str(splits["test"]),
+        normal_path=str(root / "normal.txt"))
 
-        trainer = GNNTrainer(cfg, seed=611, device=dev)
-        losses, step_ms = [], []
-        step = trainer.train_step
+    trainer = GNNTrainer(cfg, seed=611, device=dev)
+    losses, step_ms = [], []
+    step = trainer.train_step
 
-        def timed_step(graph, labels, weights):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            loss, prob = step(graph, labels, weights)
-            torch.cuda.synchronize()
-            step_ms.append((time.perf_counter() - t) * 1e3)
-            losses.append(float(loss))
-            return loss, prob
-
-        trainer.train_step = timed_step
-        t = time.perf_counter()
-        stats = trainer.train()
-        t_train = time.perf_counter() - t
-        evaluator = HomoGraphEvaluator(cfg, verbose=False, device=dev)
+    def timed_step(graph, labels, weights):
         torch.cuda.synchronize()
         t = time.perf_counter()
-        got = evaluator.eval()
+        loss, prob = step(graph, labels, weights)
         torch.cuda.synchronize()
-        n_test = len(evaluator.test_data)
-        eval_ms = (time.perf_counter() - t) * 1e3 / n_test
-        launches = kernels.launch_counts()
-        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        step_ms.append((time.perf_counter() - t) * 1e3)
+        losses.append(float(loss))
+        return loss, prob
 
-        # ---- checks -----------------------------------------------------
-        n_steps = TRAIN_EPOCHS * -(-TRAIN_SPLITS[0][1] // 2)
-        check(len(losses) == n_steps and all(map(math.isfinite, losses)),
-              f"train losses {losses}: want {n_steps} finite")
-        ckpt = Path(cfg["checkpoint"]["path"])
-        files = sorted(p.name for p in ckpt.iterdir())
-        check(files == ["configs.json", f"model_v{TRAIN_EPOCHS}.msgpack",
-                        "training_stats.json", "version.txt"],
-              f"checkpoint directory holds {files}")
-        check((ckpt / "version.txt").read_text() == f"{TRAIN_EPOCHS}\n",
-              "version.txt is not the last epoch")
-        lines = (ckpt / "training_stats.json").read_text().splitlines()
-        check([json.loads(x)["Epoch"] for x in lines]
-              == list(range(1, TRAIN_EPOCHS + 1)),
-              f"training_stats.json epochs {lines}")
-        names = ("Accuracy", "F1", "Precision", "Recall", "AUC")
-        want = [stats[f"Testing {m}"] for m in names]
-        # the stats are rounded to 5 digits when written
-        check(all(abs(a - b) <= 1e-5 for a, b in zip(got, want)),
-              f"evaluator metrics {got} != the trainer's last test {want}")
-        label = evaluator.last_metrics["label"]
-        check(len(set(label.tolist())) == 2, "test split lacks a class")
+    trainer.train_step = timed_step
+    t = time.perf_counter()
+    stats = trainer.train()
+    t_train = time.perf_counter() - t
+    evaluator = HomoGraphEvaluator(cfg, verbose=False, device=dev)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    got = evaluator.eval()
+    torch.cuda.synchronize()
+    n_test = len(evaluator.test_data)
+    eval_ms = (time.perf_counter() - t) * 1e3 / n_test
+    launches = kernels.launch_counts()
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
 
-        pred = SlidePredictor(cfg, radius=RADIUS, n_node_types=N_TYPES,
-                              checkpoint_path=str(ckpt), device=dev)
-        served = []
-        for path in evaluator.test_data.graph_paths:
-            with np.load(path) as z:
-                served.append(pred.predict(z["feat"], z["node_type"]))
-        err = float(np.abs(np.stack(served)
-                           - evaluator.last_metrics["prob"]).max())
-        log(f"train phase: SlidePredictor(checkpoint_path=) vs evaluator "
-            f"probabilities on {n_test} test slides: max|err| {err:.3g} "
-            f"(atol 1e-4)")
-        check(err <= 1e-4, f"served checkpoint differs from the evaluator by "
-              f"{err}")
+    # ---- checks -----------------------------------------------------
+    n_steps = TRAIN_EPOCHS * -(-TRAIN_SPLITS[0][1] // 2)
+    check(len(losses) == n_steps and all(map(math.isfinite, losses)),
+          f"train losses {losses}: want {n_steps} finite")
+    ckpt = Path(cfg["checkpoint"]["path"])
+    files = sorted(p.name for p in ckpt.iterdir())
+    check(files == ["configs.json", f"model_v{TRAIN_EPOCHS}.msgpack",
+                    "training_stats.json", "version.txt"],
+          f"checkpoint directory holds {files}")
+    check((ckpt / "version.txt").read_text() == f"{TRAIN_EPOCHS}\n",
+          "version.txt is not the last epoch")
+    lines = (ckpt / "training_stats.json").read_text().splitlines()
+    check([json.loads(x)["Epoch"] for x in lines]
+          == list(range(1, TRAIN_EPOCHS + 1)),
+          f"training_stats.json epochs {lines}")
+    names = ("Accuracy", "F1", "Precision", "Recall", "AUC")
+    want = [stats[f"Testing {m}"] for m in names]
+    # the stats are rounded to 5 digits when written
+    check(all(abs(a - b) <= 1e-5 for a, b in zip(got, want)),
+          f"evaluator metrics {got} != the trainer's last test {want}")
+    label = evaluator.last_metrics["label"]
+    check(len(set(label.tolist())) == 2, "test split lacks a class")
 
-        # the evaluator's forward alone, on one batch of all 3 test slides;
-        # and the first two training slides as one train batch
-        loader = evaluator._loaders[evaluator.test_data]
-        graph = lattice_to_torch(loader._make_batch(range(n_test))[0], dev)
-        fwd_ms = cuda_ms(lambda: evaluator._fwd(graph), reps=10) / n_test
-        g_np, labels, weights = trainer.loader._make_batch([0, 1])
-        batch = (lattice_to_torch(g_np, dev), to_torch(labels, dev, torch.int64),
-                 to_torch(weights, dev))
+    pred = SlidePredictor(cfg, radius=RADIUS, n_node_types=N_TYPES,
+                          checkpoint_path=str(ckpt), device=dev)
+    served = []
+    for path in evaluator.test_data.graph_paths:
+        with np.load(path) as z:
+            served.append(pred.predict(z["feat"], z["node_type"]))
+    err = float(np.abs(np.stack(served)
+                       - evaluator.last_metrics["prob"]).max())
+    log(f"train phase: SlidePredictor(checkpoint_path=) vs evaluator "
+        f"probabilities on {n_test} test slides: max|err| {err:.3g} "
+        f"(atol 1e-4)")
+    check(err <= 1e-4, f"served checkpoint differs from the evaluator by "
+          f"{err}")
 
-        rel, dp = step_on_card_vs_cpu(torch, dev, cfg, trainer.train_data,
-                                      trainer.k, trainer.loader.node_capacity)
-        lr = float(cfg["optimizer"]["lr"])
-        log(f"train phase: one step card vs CPU plain path: loss rel err "
-            f"{rel:.3g} (<= 1e-5), max|param diff| {dp:.3g} (<= 2 lr = "
-            f"{2 * lr:.3g})")
-        check(rel <= 1e-5 and dp <= 2 * lr,
-              f"card train step differs from the CPU: loss {rel}, params {dp}")
+    # the evaluator's forward alone, on one batch of all 3 test slides;
+    # and the first two training slides as one train batch
+    path, loader = evaluator.splits.loader_of(evaluator.test_data)
+    check(trainer.lattice and path == "lattice",
+          f"HEAT4 trained on the lattice {trainer.lattice}, evaluated on "
+          f"the {path} path")
+    graph = lattice_to_torch(loader._make_batch(range(n_test))[0], dev)
+    fwd = evaluator.splits.fwd[path]
+    fwd_ms = cuda_ms(lambda: fwd(graph), reps=10) / n_test
+    g_np, labels, weights = trainer.loader._make_batch([0, 1])
+    batch = (lattice_to_torch(g_np, dev), to_torch(labels, dev, torch.int64),
+             to_torch(weights, dev))
+
+    rel, dp = step_on_card_vs_cpu(torch, dev, cfg, trainer.train_data,
+                                  trainer.k, trainer.loader.node_capacity)
+    lr = float(cfg["optimizer"]["lr"])
+    log(f"train phase: one step card vs CPU plain path: loss rel err "
+        f"{rel:.3g} (<= 1e-5), max|param diff| {dp:.3g} (<= 2 lr = "
+        f"{2 * lr:.3g})")
+    check(rel <= 1e-5 and dp <= 2 * lr,
+          f"card train step differs from the CPU: loss {rel}, params {dp}")
 
     cap = trainer.loader.node_capacity
     log(f"train phase: GNN {g['name']} in {g['in_dim']} hidden "
@@ -809,6 +828,227 @@ def train_phase(torch, dev, card, kernels, n_range=TRAIN_N, gnn=None):
         f", peak device memory of the phase {peak_gib:.2f} GiB [{card}]")
     profile_span(torch, lambda: step(*batch),
                  f"one train step (batch 2 x {cap} nodes)", card)
+    return launches, splits
+
+
+# ---------------------------------------------------------------------------
+# the zoo: the TypedGraph models on the train phase's cohort
+# ---------------------------------------------------------------------------
+# (config, epochs, GNN/train overrides): the six families at the width of
+# their BRCA classification config, and HEAT4 with the lattice off
+ZOO = (
+    ("configs/BRCA/GCN_kimia_classification.yml", 1, {}),
+    ("configs/BRCA/GAT_kimia_classification.yml", 1, {}),
+    ("configs/BRCA/GIN_kimia_classification.yml", 1, {}),
+    ("configs/BRCA/GCN_NTPool_kimia_classification.yml", 1, {}),
+    ("configs/BRCA/HetRGCN_kimia_classification.yml", 1, {}),
+    ("configs/BRCA/HGT_kimia_classification.yml", 2, {}),
+    (HEAT4_CONFIG, 1, {"train": {"lattice": "off"}}),
+)
+ZOO_TIMED_STEPS = 3
+
+
+def write_homogeneous(root: Path, splits):
+    """The cohort again as untyped `.npz` files (self-loops added at load,
+    as homogeneous models are trained and served); no new KNN. Returns
+    {split: list file}."""
+    import numpy as np
+
+    from wsi_hgnn_tpu_torch.data.datasets import save_graph_npz
+
+    (root / "homo").mkdir(exist_ok=True)
+    out = {}
+    for split, listing in splits.items():
+        paths = []
+        for typed in Path(listing).read_text().split():
+            untyped = root / "homo" / Path(typed).name
+            with np.load(typed) as z:
+                save_graph_npz(untyped, z["feat"], z["src"], z["dst"],
+                               esign=z["esign"], sim=z["sim"],
+                               is_hetero=False)
+            paths.append(str(untyped))
+        out[split] = root / "homo" / f"{split}.txt"
+        out[split].write_text("\n".join(paths) + "\n")
+    return out
+
+
+def typed_step_on_card_vs_cpu(torch, dev, cfg, trainer):
+    """One TypedGraph step from the same seeded weights on the first two
+    train slides, the augmentation and dropout masks the CPU step drew
+    replayed on the card: (loss relative error, max |param difference|)."""
+    import copy
+
+    from wsi_hgnn_tpu_torch import convert
+    from wsi_hgnn_tpu_torch.config import (parse_gnn_model, parse_loss,
+                                           parse_optimizer)
+    from wsi_hgnn_tpu_torch.data.loader import GraphLoader
+    from wsi_hgnn_tpu_torch.graph import transforms
+    from wsi_hgnn_tpu_torch.graph.typed_graph import to_homogeneous
+    from wsi_hgnn_tpu_torch.models import DropSource
+    from wsi_hgnn_tpu_torch.train import typed_train_step
+    from wsi_hgnn_tpu_torch.utils import to_torch
+
+    cpu = torch.device("cpu")
+    host, labels, weights = GraphLoader(trainer.train_data, 2,
+                                        shuffle=False)._make_batch([0, 1])
+    model, hetero = parse_gnn_model(cfg["GNN"])
+    convert.init_flax_like_(model, seed=5)
+    gen = torch.Generator().manual_seed(7)
+    g_cpu = host.to_torch(cpu)
+    masks = transforms.draw_train_masks(
+        g_cpu if hetero else to_homogeneous(g_cpu), gen)
+    drops = DropSource(gen)
+    loss_fn = parse_loss(cfg["train"])
+    out = {}
+    for device, m, src in ((cpu, copy.deepcopy(model), drops),
+                           (dev, model.to(dev), None)):
+        src = src or DropSource(masks=[t.to(device) for t in drops.used])
+        loss, _ = typed_train_step(
+            m, parse_optimizer(cfg["optimizer"], m.parameters()), loss_fn,
+            host.to_torch(device), to_torch(labels, device, torch.int64),
+            to_torch(weights, device), hetero,
+            masks=transforms.TrainMasks(*(t.to(device) for t in masks)),
+            drops=src)
+        out[device.type] = (float(loss), [p.detach().cpu() for p in
+                                          m.parameters()])
+    (l_cpu, p_cpu), (l_dev, p_dev) = out["cpu"], out[dev.type]
+    diff = max(float((a - b).abs().max()) for a, b in zip(p_dev, p_cpu))
+    return abs(l_dev - l_cpu) / abs(l_cpu), diff
+
+
+def zoo_phase(torch, dev, card, kernels, root: Path, splits, widths=None):
+    """Each ZOO entry on the cohort under `root`: GNNTrainer (TypedGraph
+    path), HomoGraphEvaluator on the checkpoint it wrote (equal to the
+    trainer's last test metrics), SlidePredictor(checkpoint_path=) on the
+    test slides' features with each graph rebuilt on the device (equal to
+    the evaluator's probabilities; one KNN launch per slide), and one
+    step on the card against the CPU. Prints ms per train step, eval ms
+    per slide and peak device memory per family, and profiles one HGT
+    step. Returns the launch counts of the phase. `widths` overrides GNN
+    keys of every family (a small CPU rehearsal)."""
+    import math
+
+    import numpy as np
+
+    from wsi_hgnn_tpu_torch.config import load_config, parse_gnn_model
+    from wsi_hgnn_tpu_torch.serve import SlidePredictor
+    from wsi_hgnn_tpu_torch.train import GNNTrainer, HomoGraphEvaluator
+    from wsi_hgnn_tpu_torch.utils import to_torch
+
+    homo = write_homogeneous(root, splits)
+    names = ("Accuracy", "F1", "Precision", "Recall", "AUC")
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    served, profiled = 0, None
+    for i, (path, epochs, override) in enumerate(ZOO):
+        cfg = load_config(ROOT / path)
+        cfg["GNN"].update(widths or {})
+        cfg["train"].update(override.get("train", {}), num_epochs=epochs)
+        g = cfg["GNN"]
+        tag = g["name"] + (" (lattice off)" if override else "")
+        lists = splits if parse_gnn_model(g)[1] else homo
+        cfg["checkpoint"]["path"] = str(root / f"zoo_{i}")
+        cfg["datasets"].update(
+            train_path=str(lists["train"]), valid_path=str(lists["val"]),
+            eval_path=str(lists["test"]), normal_path=str(root / "normal.txt"))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        trainer = GNNTrainer(cfg, seed=611, device=dev)
+        check(not trainer.lattice, f"{tag} trained on the lattice")
+        losses, step_ms = [], []
+        step = trainer.train_step
+
+        def timed_step(graph, labels, weights):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            loss, prob = step(graph, labels, weights)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t) * 1e3)
+            losses.append(float(loss))
+            return loss, prob
+
+        trainer.train_step = timed_step
+        stats = trainer.train()
+        t_train = time.perf_counter() - t0
+        trained = list(losses)
+        evaluator = HomoGraphEvaluator(cfg, verbose=False, device=dev)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        got = evaluator.eval()
+        torch.cuda.synchronize()
+        n_test = len(evaluator.test_data)
+        eval_ms = (time.perf_counter() - t) * 1e3 / n_test
+
+        n_steps = epochs * -(-len(trainer.train_data) //
+                             int(cfg["train"]["batch_size"]))
+        check(len(trained) == n_steps and all(map(math.isfinite, trained)),
+              f"{tag} train losses {trained}: want {n_steps} finite")
+        want = [stats[f"Testing {m}"] for m in names]
+        check(all(abs(a - b) <= 1e-5 for a, b in zip(got, want)),
+              f"{tag} evaluator metrics {got} != the trainer's last test "
+              f"{want}")
+        check(evaluator.splits.loader_of(evaluator.test_data)[0] == "typed",
+              f"{tag} not evaluated on the TypedGraph path")
+
+        pred = SlidePredictor(cfg, radius=RADIUS, n_node_types=N_TYPES,
+                              checkpoint_path=cfg["checkpoint"]["path"],
+                              device=dev)
+        knn0 = kernels.launch_counts()["knn_l2_fused"]
+        probs = []
+        for p in evaluator.test_data.graph_paths:
+            with np.load(p) as z:
+                probs.append(pred.predict(z["feat"], z["node_type"]))
+        knn = kernels.launch_counts()["knn_l2_fused"] - knn0
+        served += n_test
+        err = float(np.abs(np.stack(probs)
+                           - evaluator.last_metrics["prob"]).max())
+        check(err <= 1e-4, f"{tag} served probabilities differ from the "
+              f"evaluator by {err}")
+        check(knn == n_test, f"{tag}: {knn} KNN launches for {n_test} "
+              f"served slides")
+
+        # steady state: more steps on the first train batch
+        g_b, labels, weights = next(iter(trainer.loader))
+        batch = (g_b, to_torch(labels, dev, torch.int64),
+                 to_torch(weights, dev))
+        for _ in range(ZOO_TIMED_STEPS):
+            timed_step(*batch)
+        ms = float(np.median(step_ms[-ZOO_TIMED_STEPS:]))
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        rel, dp = typed_step_on_card_vs_cpu(torch, dev, cfg, trainer)
+        lr = float(cfg["optimizer"]["lr"])
+        check(rel <= 1e-5 and dp <= 2 * lr,
+              f"{tag} card train step differs from the CPU: loss {rel}, "
+              f"params {dp} (2 lr = {2 * lr})")
+        widths_of = ", ".join(f"{k} {g[k]}" for k in (
+            "in_dim", "hidden_dim", "num_heads", "n_heads", "num_layers")
+            if k in g)
+        log(f"zoo {tag} ({path}: {widths_of}, batch "
+            f"{cfg['train']['batch_size']}, {epochs} epoch(s) in "
+            f"{t_train:.1f} s): losses {[round(x, 5) for x in trained]}, test "
+            f"metrics {[round(x, 5) for x in got]}; served vs evaluator "
+            f"max|err| {err:.3g} (atol 1e-4), {knn} KNN launches for {n_test}"
+            f" slides; card vs CPU step loss rel err {rel:.3g} (<= 1e-5), "
+            f"max|param diff| {dp:.3g} (<= 2 lr = {2 * lr:.3g})")
+        log(f"timing zoo {tag}: {ms:.2f} ms per train step (median of "
+            f"{ZOO_TIMED_STEPS} steps on one batch after {len(trained)} "
+            f"training steps; first step {step_ms[0]:.1f} ms; host clock, "
+            f"synchronised), {eval_ms:.1f} ms per eval slide "
+            f"(HomoGraphEvaluator.eval over {n_test} slides), peak device "
+            f"memory {peak_gib:.2f} GiB [{card}]")
+        if g["name"] == "HGT":
+            profiled = (lambda s=step, b=batch: s(*b), g_b.num_nodes)
+        # the next family's peak counts none of this one's tensors
+        del trainer, evaluator, pred, batch, g_b, step
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    check(launches["knn_l2_fused"] == served and not any(
+        v for k, v in launches.items() if k != "knn_l2_fused"),
+        f"zoo phase launched {launches}, want {served} KNN launches only")
+    fn, n_nodes = profiled
+    profile_span(torch, fn, f"one HGT train step (batch 1, {n_nodes} node "
+                 f"slots)", card)
     return launches
 
 
@@ -867,8 +1107,10 @@ def main() -> int:
             f"[{card}]")
 
     launches = slice_phase(torch, dev, card, kernels)
-    trained = train_phase(torch, dev, card, kernels)
-    launches = {k: launches[k] + trained[k] for k in launches}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        trained, splits = train_phase(torch, dev, card, kernels, Path(tmp))
+        zoo = zoo_phase(torch, dev, card, kernels, Path(tmp), splits)
+    launches = {k: launches[k] + trained[k] + zoo[k] for k in launches}
 
     # library_ms is null: no single PyTorch call computes any of the three
     # functions (a top-k KNN, or a fused affine + GEMM + conv / pool chain)

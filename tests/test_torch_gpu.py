@@ -13,10 +13,13 @@ import pytest
 import torch
 
 from wsi_hgnn_tpu_torch import convert, kernels
-from wsi_hgnn_tpu_torch.config import (parse_lattice_twin, parse_loss,
-                                       parse_optimizer)
+from wsi_hgnn_tpu_torch.config import (parse_gnn_model, parse_lattice_twin,
+                                       parse_loss, parse_optimizer)
 from wsi_hgnn_tpu_torch.data.datasets import save_graph_npz
+from wsi_hgnn_tpu_torch.graph import (batch_graphs, from_arrays,
+                                      sort_graph_edges, transforms)
 from wsi_hgnn_tpu_torch.graph import ops as gops
+from wsi_hgnn_tpu_torch.models import DropSource
 from wsi_hgnn_tpu_torch.kernels import densenet as kdn
 from wsi_hgnn_tpu_torch.kernels import knn as kknn
 from wsi_hgnn_tpu_torch.models import lattice as tlat
@@ -24,7 +27,7 @@ from wsi_hgnn_tpu_torch.models.featurizers import (KimiaNet, fuse_kimianet,
                                                    kimianet_fused_apply)
 from wsi_hgnn_tpu_torch.serve import SlidePredictor
 from wsi_hgnn_tpu_torch.train import (GNNTrainer, HomoGraphEvaluator,
-                                      lattice_train_step)
+                                      lattice_train_step, typed_train_step)
 from wsi_hgnn_tpu_torch.utils import set_cuda_numerics
 
 pytestmark = pytest.mark.gpu
@@ -347,3 +350,106 @@ def test_trainer_one_epoch_on_card(cuda, tmp_path):
     np.testing.assert_allclose(on_card.eval(), on_cpu.eval(), atol=1e-6)
     np.testing.assert_allclose(on_card.last_metrics["prob"],
                                on_cpu.last_metrics["prob"], atol=1e-4)
+
+
+# one small GNN section per zoo family (widths 32, 2 layers, 2 heads)
+_ZOO_BASE = {"in_dim": 32, "hidden_dim": 32, "out_dim": 2, "num_layers": 2,
+             "n_node_types": 6, "feat_drop": 0.2}
+ZOO = {
+    "GCN": dict(_ZOO_BASE, name="GCN", graph_pooling_type="att"),
+    "GAT": dict(_ZOO_BASE, name="GAT", num_heads=2, num_out_heads=1,
+                attn_drop=0.2, negative_slope=0.2, graph_pooling_type="mean"),
+    "GIN": dict(_ZOO_BASE, name="GIN", num_layers=3, num_mlp_layers=2,
+                graph_pooling_type="att", neighbor_pooling_type="mean"),
+    "GCN_NTPool": dict(_ZOO_BASE, name="GCN_NTPool",
+                       graph_pooling_type="mean"),
+    "HetRGCN": dict(_ZOO_BASE, name="HetRGCN", graph_pooling_type="mean",
+                    edge_types=["pos", "neg"]),
+    "HGT": dict(_ZOO_BASE, name="HGT", num_heads=2, graph_pooling_type="mean"),
+    "HEAT4": dict(_ZOO_BASE, name="HEAT4", n_heads=2,
+                  graph_pooling_type="mean"),
+}
+
+
+def _typed_batch(is_hetero, seed=0):
+    """Two random KNN-degree slides (8 out-edges per node) batched and
+    edge-sorted on the host; explicit self-loops for homogeneous models."""
+    rng = np.random.RandomState(seed)
+    graphs = []
+    for n in (300, 257):
+        e = 8 * n
+        graphs.append(from_arrays(
+            rng.randn(n, 32).astype(np.float32), np.repeat(np.arange(n), 8),
+            rng.randint(0, n, e), node_type=rng.randint(0, 6, n),
+            esign=rng.randint(0, 2, e), sim=rng.uniform(-1, 1, e),
+            n_node_types=6 if is_hetero else 1,
+            add_self_loops=not is_hetero))
+    return sort_graph_edges(batch_graphs(graphs))
+
+
+@pytest.mark.parametrize("family", sorted(ZOO))
+def test_typed_train_step_on_card_matches_cpu(cuda, family):
+    """One TypedGraph Adam step per zoo family from the same weights,
+    batch, augmentation and dropout masks (those the CPU step drew):
+    loss to 1e-5 relative, parameters within 2 lr, running statistics to
+    1e-4."""
+    model, is_hetero = parse_gnn_model(ZOO[family])
+    convert.init_flax_like_(model, seed=0)
+    host = _typed_batch(is_hetero)
+    optim = {"opt_method": "ADAM", "lr": 1e-3, "weight_decay": 5e-3}
+    loss_fn = parse_loss({"loss": "CE"})
+    labels, weights = torch.tensor([0, 1]), torch.tensor([1.0, 1.0])
+    gen = torch.Generator().manual_seed(1)
+    g_cpu = host.to_torch(torch.device("cpu"))
+    masks = transforms.draw_train_masks(g_cpu, gen)
+    drops = DropSource(gen)
+    card = convert.init_flax_like_(parse_gnn_model(ZOO[family])[0],
+                                   seed=0).to(cuda)
+    res = []
+    for dev, m, src in ((torch.device("cpu"), model, drops),
+                        (cuda, card, None)):
+        if src is None:
+            src = DropSource(masks=[a.to(dev) for a in drops.used])
+        loss, prob = typed_train_step(
+            m, parse_optimizer(optim, m.parameters()), loss_fn,
+            host.to_torch(dev), labels.to(dev), weights.to(dev), is_hetero,
+            masks=transforms.TrainMasks(*(a.to(dev) for a in masks)),
+            drops=src)
+        res.append((float(loss), prob.cpu(),
+                    convert.to_flax_variables(m)))
+    (l_cpu, p_cpu, v_cpu), (l_dev, p_dev, v_dev) = res
+    assert abs(l_dev - l_cpu) <= 1e-5 * abs(l_cpu)
+    torch.testing.assert_close(p_dev, p_cpu, rtol=1e-5, atol=1e-5)
+    for coll, tol in (("params", 2 * optim["lr"]), ("batch_stats", 1e-4)):
+        for key, a in _flat(v_dev.get(coll, {})).items():
+            assert np.abs(a - _flat(v_cpu[coll])[key]).max() <= tol, key
+
+
+def _flat(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_flat(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = np.asarray(v)
+    return out
+
+
+@pytest.mark.parametrize("family", ["GCN", "HGT"])
+def test_typed_predictor_on_card_launches_the_knn_per_slide(cuda, family):
+    """SlidePredictor's TypedGraph path on the card builds each slide's
+    graph through the KNN kernel (one launch per slide) and answers as
+    the CPU path does."""
+    gnn = dict(ZOO[family], in_dim=64)
+    model, _ = parse_gnn_model(gnn)
+    variables = convert.to_flax_variables(convert.init_flax_like_(model, 0))
+    rng = np.random.RandomState(3)
+    slides = [(rng.randn(n, 64).astype(np.float32),
+               rng.randint(0, 6, n).astype(np.int32)) for n in (300, 41, 700)]
+    on_card = SlidePredictor({"GNN": gnn}, variables=variables, device=cuda)
+    on_cpu = SlidePredictor({"GNN": gnn}, variables=variables, device="cpu")
+    assert not on_card.uses_lattice(3, 768)
+    before = kknn.knn_l2_fused.launches
+    got = on_card.predict_many(slides)
+    assert kknn.knn_l2_fused.launches == before + 3
+    np.testing.assert_allclose(got, on_cpu.predict_many(slides), atol=1e-4)

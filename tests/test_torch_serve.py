@@ -128,9 +128,10 @@ def test_entry_points_never_fall_back_to_cpu(monkeypatch, tmp_path):
                                   "HEAT4_kimia_classification.yml")])
     with pytest.raises(NotImplementedError, match="item 12"):
         main.main(["-mode", "graph_explain", "-device", "cpu"])
-    with pytest.raises(NotImplementedError, match="lattice twin"):
-        SlidePredictor({"GNN": dict(GNN, name="GCN")}, variables={},
-                       device="cpu")
+    with pytest.raises(NotImplementedError, match="asap"):
+        SlidePredictor({"GNN": dict(GNN, name="GCN",
+                                    graph_pooling_type="asap")},
+                       variables={}, device="cpu")
 
 
 def _run_smoke(script: Path, cwd: Path):

@@ -179,17 +179,75 @@ def parse_lattice_twin(config_gnn: Dict):
     )
 
 
-def parse_gnn_model(config_gnn: Dict):
-    """The model of a GNN section: the lattice HEAT twin. Every other
-    model (and HEAT with another pooling) runs on the TypedGraph path,
-    which the port does not have yet."""
-    model = parse_lattice_twin(config_gnn)
-    if model is None:
+def parse_gnn_model(config_gnn: Dict) -> Tuple[torch.nn.Module, bool]:
+    """(model, is_heterogeneous) of a GNN section (the JAX package's
+    parse_gnn_model, reference parser.py:48-174): heterogeneous models
+    take the typed graph, homogeneous ones its untyped view. Its quirks
+    are kept: GAT's residual is off whatever the file says and its heads
+    are [num_heads] * num_layers + [num_out_heads]; HGT ignores
+    graph_pooling_type; HetRGCN has len(edge_types) edge types; the
+    TypedGraph HEAT models default to typed_impl 'onehot'."""
+    from .models import (GAT, GCN, GIN, HEATNet2, HEATNet4, HGT, HetRGCN,
+                         NTPoolGCN)
+
+    c = config_gnn
+    name = c["name"]
+    if name == "GAT":
+        n_layers = int(c["num_layers"])
+        heads = [int(c["num_heads"])] * n_layers + [int(c["num_out_heads"])]
+        return GAT(n_layers=n_layers, in_dim=int(c["in_dim"]),
+                   hidden_dim=int(c["hidden_dim"]), out_dim=int(c["out_dim"]),
+                   heads=tuple(heads), feat_drop=float(c["feat_drop"]),
+                   attn_drop=float(c["attn_drop"]),
+                   negative_slope=float(c["negative_slope"]), residual=False,
+                   graph_pooling_type=c["graph_pooling_type"]), False
+    if name == "GCN" and c.get("graph_pooling_type") == "asap":
         raise NotImplementedError(
-            f"GNN {config_gnn['name']!r} (pooling "
-            f"{config_gnn.get('graph_pooling_type', 'mean')!r}) needs the "
-            "TypedGraph models, not ported yet (ROADMAP.md item 11)")
-    return model
+            "GCN with graph_pooling_type 'asap' (models/asap.py, ASAPGCN) is "
+            "not ported yet; it is queued in ROADMAP.md after BatchingServer")
+    if name == "GCN":
+        return GCN(in_dim=int(c["in_dim"]), hidden_dim=int(c["hidden_dim"]),
+                   out_dim=int(c["out_dim"]), n_layers=int(c["num_layers"]),
+                   dropout=float(c["feat_drop"]),
+                   graph_pooling_type=c["graph_pooling_type"]), False
+    if name == "GCN_NTPool":
+        return NTPoolGCN(in_dim=int(c["in_dim"]),
+                         hidden_dim=int(c["hidden_dim"]),
+                         out_dim=int(c["out_dim"]),
+                         n_node_types=int(c["n_node_types"]),
+                         n_layers=int(c["num_layers"]),
+                         dropout=float(c["feat_drop"]),
+                         graph_pooling_type=c["graph_pooling_type"]), True
+    if name == "GIN":
+        return GIN(input_dim=int(c["in_dim"]), hidden_dim=int(c["hidden_dim"]),
+                   out_dim=int(c["out_dim"]), num_layers=int(c["num_layers"]),
+                   num_mlp_layers=int(c["num_mlp_layers"]),
+                   final_dropout=float(c["feat_drop"]),
+                   graph_pooling_type=c["graph_pooling_type"],
+                   neighbor_pooling_type=c["neighbor_pooling_type"]), False
+    if name == "HetRGCN":
+        return HetRGCN(in_dim=int(c["in_dim"]),
+                       hidden_dim=int(c["hidden_dim"]),
+                       out_dim=int(c["out_dim"]),
+                       n_layers=int(c["num_layers"]),
+                       n_node_types=int(c["n_node_types"]),
+                       n_edge_types=len(c.get("edge_types", ["neg", "pos"])),
+                       graph_pooling_type=c["graph_pooling_type"]), True
+    if name == "HGT":
+        return HGT(in_dim=int(c["in_dim"]), hidden_dim=int(c["hidden_dim"]),
+                   out_dim=int(c["out_dim"]), n_layers=int(c["num_layers"]),
+                   n_heads=int(c["num_heads"]),
+                   n_node_types=int(c["n_node_types"])), True
+    if name in ("HEAT2", "HEAT4"):
+        cls = HEATNet2 if name == "HEAT2" else HEATNet4
+        return cls(in_dim=int(c["in_dim"]), hidden_dim=int(c["hidden_dim"]),
+                   out_dim=int(c["out_dim"]), n_layers=int(c["num_layers"]),
+                   n_heads=int(c["n_heads"]),
+                   n_node_types=int(c["n_node_types"]),
+                   dropout=float(c["feat_drop"]),
+                   graph_pooling_type=c["graph_pooling_type"],
+                   typed_impl=str(c.get("typed_impl", "onehot"))), True
+    raise NotImplementedError(f"This GNN model is not implemented: {name!r}")
 
 
 def parse_optimizer(config_optim: Dict, params: Iterable[torch.nn.Parameter]

@@ -10,13 +10,20 @@ leaf maps by the kind of module that owns it:
   nn.Linear        weight [out, in]   <- kernel [in, out]
   nn.BatchNorm2d   weight, bias       <- params scale, bias
                    running_mean/var   <- batch_stats mean, var
+  a module with a  its leaves in the named collection (MaskedBatchNorm's
+  flax_collections   buffers mean, var <- batch_stats mean, var)
+  map
   anything else    the leaf by name   (TypedDense/TypedHeads kernel
                                        [T, in, out] and bias [T, out],
-                                       HEAT's skip [T])
+                                       HEAT's skip [T], GAT's attn_l/r
+                                       [1, H, F], GIN's scalar eps, HGT's
+                                       relation_att/msg/pri, per-type
+                                       LayerNorm scale/bias [T, d])
 
 `init_flax_like_` draws a module's weights from a seed with flax's
-default initialisers (lecun-normal kernels, zero biases, BN 1/0/0/1), so
-a run without weight files still sees realistic activation scales.
+default initialisers (lecun-normal kernels, xavier-uniform HGT relation
+tensors, xavier-normal GAT attention vectors, zero biases, BN 1/0/0/1),
+so a run without weight files starts where a flax run would.
 """
 from __future__ import annotations
 
@@ -36,6 +43,9 @@ def _leaf(owner: nn.Module, leaf: str) -> Tuple[str, str]:
     """(collection, flax leaf name) of a torch leaf."""
     if isinstance(owner, nn.BatchNorm2d):
         return _BN[leaf]
+    coll = getattr(owner, "flax_collections", {}).get(leaf)
+    if coll is not None:
+        return coll, leaf
     if isinstance(owner, (nn.Conv2d, nn.Linear)) and leaf == "weight":
         return "params", "kernel"
     return "params", leaf
@@ -102,7 +112,7 @@ def to_flax_variables(module: nn.Module) -> Dict:
         for key in keys:
             node = node.setdefault(key, {})
         arr = t.detach().float().cpu().numpy()
-        node[name] = np.ascontiguousarray(_to_flax_layout(owner, leaf, arr))
+        node[name] = np.array(_to_flax_layout(owner, leaf, arr), order="C")
     return out
 
 
@@ -121,7 +131,7 @@ def params_to_flax(module: nn.Module, values: Dict[str, torch.Tensor]
         for key in keys:
             node = node.setdefault(key, {})
         arr = values[".".join(keys + [leaf])].detach().float().cpu().numpy()
-        node[name] = np.ascontiguousarray(_to_flax_layout(owner, leaf, arr))
+        node[name] = np.array(_to_flax_layout(owner, leaf, arr), order="C")
     return out
 
 
@@ -140,33 +150,54 @@ def params_from_flax(module: nn.Module, tree: Dict) -> Dict[str, np.ndarray]:
         if tuple(arr.shape) != tuple(t.shape):
             raise ValueError(f"{'/'.join(keys)}/{name}: flax shape "
                              f"{arr.shape} vs torch {tuple(t.shape)}")
-        out[".".join(keys + [leaf])] = np.ascontiguousarray(arr)
+        out[".".join(keys + [leaf])] = np.array(arr, order="C")
     return out
 
 
-# flax's lecun_normal: a normal truncated to +-2 std, rescaled by the std of
-# that truncated normal so the variance is 1/fan_in
+# flax's truncated-normal initialisers: a normal truncated to +-2 std,
+# rescaled by the std of that truncated normal
 _TRUNC_STD = 0.87962566103423978
+# leaves flax initialises to ones; every other non-kernel leaf is zeros
+_ONES = ("scale", "var", "skip", "relation_pri")
+
+
+def _flax_fans(shape) -> Tuple[int, int]:
+    """flax variance_scaling's (fan_in, fan_out) of a flax-layout shape:
+    in axis -2, out axis -1, the receptive field the product of the rest
+    (so a [T, in, out] typed kernel has fan-in T*in, not torch's rule)."""
+    receptive = math.prod(shape[:-2])
+    return shape[-2] * receptive, shape[-1] * receptive
+
+
+def _trunc_normal(shape, std: float, gen: torch.Generator) -> torch.Tensor:
+    w = torch.empty(shape)
+    nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
+    return w * (std / _TRUNC_STD)
 
 
 @torch.no_grad()
 def init_flax_like_(module: nn.Module, seed: int) -> nn.Module:
-    """Seeded init with flax's defaults, in place. Kernels are
-    lecun-normal with flax's fan-in (all axes but the output one: a
-    [T, in, out] typed kernel has fan-in T*in); biases 0; BatchNorm scale
-    1, bias 0, mean 0, var 1; HEAT's skip 1."""
+    """Seeded init with flax's defaults, in place: kernels lecun-normal
+    (variance 1/fan_in), HGT's relation_att/relation_msg xavier-uniform
+    and GAT's attn_l/attn_r xavier-normal (variance 2/(fan_in+fan_out)),
+    all with flax's fans; relation_pri, skip, scales and running
+    variances 1; biases, eps and running means 0."""
     gen = torch.Generator().manual_seed(seed)
     for owner, _, leaf, t in _leaves(module):
         name = _leaf(owner, leaf)[1]
+        if name not in ("kernel", "relation_att", "relation_msg", "attn_l",
+                        "attn_r"):
+            t.fill_(1.0 if name in _ONES else 0.0)
+            continue
+        # fans from the flax layout; the draw is in the torch layout
+        fan_in, fan_out = _flax_fans(_to_flax_layout(
+            owner, leaf, np.empty(t.shape, np.uint8)).shape)
         if name == "kernel":
-            fan_in = t[0].numel() if isinstance(owner, nn.Conv2d) else (
-                t.shape[1] if isinstance(owner, nn.Linear)
-                else t.numel() // t.shape[-1])
-            w = torch.empty(t.shape)
-            nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
-            t.copy_(w * (math.sqrt(1.0 / fan_in) / _TRUNC_STD))
-        elif name in ("scale", "var", "skip"):
-            t.fill_(1.0)
-        else:  # bias, mean
-            t.zero_()
+            t.copy_(_trunc_normal(t.shape, math.sqrt(1.0 / fan_in), gen))
+        elif name in ("relation_att", "relation_msg"):
+            limit = math.sqrt(6.0 / (fan_in + fan_out))
+            t.copy_((torch.rand(t.shape, generator=gen) * 2.0 - 1.0) * limit)
+        else:  # attn_l, attn_r
+            t.copy_(_trunc_normal(t.shape, math.sqrt(2.0 / (fan_in + fan_out)),
+                                  gen))
     return module

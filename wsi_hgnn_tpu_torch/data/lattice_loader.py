@@ -80,6 +80,21 @@ def probe_lattice_and_capacities(dataset, batch_size: int,
     )
 
 
+def lattice_batch_for_budget(k: int, cap_n: int, budget: int = 2 << 30,
+                             max_batch: int = 8) -> Optional[int]:
+    """Largest batch (<= max_batch) whose [B, N*k, N] f32 one-hot
+    destination matrix fits `budget` bytes, or None when B = 1 does not
+    (or k < 1). The port builds no such matrix; the JAX package's trainer
+    and predictor choose between the lattice and the TypedGraph path by
+    it, and the port makes the same choice."""
+    if k < 1:
+        return None
+    per = cap_n * k * cap_n * 4
+    if per > budget:
+        return None
+    return max(1, min(max_batch, int(budget // per)))
+
+
 def pack_slide(g: TypedGraph, k: int, cap_n: int):
     """One graph with out-degrees <= k -> per-slide lattice buffers
     [cap_n, ...]. Edges are grouped by source, stable within a source, so

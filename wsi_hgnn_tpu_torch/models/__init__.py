@@ -1,11 +1,21 @@
-"""Models of the port: lattice HEAT, layers, CNN featurizers."""
+"""Models of the port: the TypedGraph GNN zoo, lattice HEAT, layers, CNN
+featurizers."""
+from .heterogeneous import (HEATLayer, HEATNet2, HEATNet4, HetRGCN,
+                            HetRGCNLayer, HGT, HGTLayer)
+from .homogeneous import (GAT, GATConvLayer, GCN, GIN, GINConvLayer, GINMLP,
+                          GraphConvLayer, NTPoolGCN)
 from .lattice import (HEATLayerLattice, HEATNet2Lattice, HEATNet4Lattice,
                       LatticeGraph, TrainMasks, apply_train_masks,
                       build_lattice_device, draw_train_masks,
                       lattice_train_transform)
-from .layers import LinearAttentionBlock, TypedDense, TypedHeads
+from .layers import (DropSource, LinearAttentionBlock, MaskedBatchNorm, Pool,
+                     TypedDense, TypedHeads, TypedLayerNorm, pool_all_types)
 
-__all__ = ["HEATLayerLattice", "HEATNet2Lattice", "HEATNet4Lattice",
-           "LatticeGraph", "LinearAttentionBlock", "TrainMasks", "TypedDense",
-           "TypedHeads", "apply_train_masks", "build_lattice_device",
-           "draw_train_masks", "lattice_train_transform"]
+__all__ = ["DropSource", "GAT", "GATConvLayer", "GCN", "GIN", "GINConvLayer",
+           "GINMLP", "GraphConvLayer", "HEATLayer", "HEATLayerLattice",
+           "HEATNet2", "HEATNet2Lattice", "HEATNet4", "HEATNet4Lattice",
+           "HGT", "HGTLayer", "HetRGCN", "HetRGCNLayer", "LatticeGraph",
+           "LinearAttentionBlock", "MaskedBatchNorm", "NTPoolGCN", "Pool",
+           "TrainMasks", "TypedDense", "TypedHeads", "TypedLayerNorm",
+           "apply_train_masks", "build_lattice_device", "draw_train_masks",
+           "lattice_train_transform", "pool_all_types"]

@@ -1,19 +1,27 @@
-"""Slide-to-prediction serving (counterpart of the pixels-in lattice path
-of wsi_hgnn_tpu/serve.py::SlidePredictor).
+"""Slide-to-prediction serving (counterpart of
+wsi_hgnn_tpu/serve.py::SlidePredictor).
 
 A request carries patch features [N, D] (+ node types), or raw patch
 pixels once `enable_pixels` attached the two-CNN encoder (KimiaNet
 features + HoVer-Net typing over one patch stream). Slides of a group are
-padded to one size bucket; the KNN + Pearson lattice is built on the
-device and the lattice HEAT model answers with softmax probabilities.
-Occupancy is per slide (presence='graph'), so a response never depends on
-which other requests share its group.
+padded to one size bucket and their graphs built on the device (KNN +
+Pearson, one KNN launch per slide). Two paths answer, chosen as the JAX
+predictor chooses:
 
-The weights come from a checkpoint directory written by either package's
-trainer (its latest version), or as a flax-layout tree (`variables=`).
+  * the lattice path: a model with a lattice twin (HEAT2/HEAT4) on the
+    [B, N, k] lattice with per-slide occupancy (presence='graph'), when
+    the group fits the JAX package's one-hot memory budget;
+  * the TypedGraph path: every other model (and oversized groups), one
+    forward per slide of the group on its own TypedGraph, with explicit
+    self-loops and the untyped view for homogeneous models (what they
+    were trained on).
 
-Not ported yet (ROADMAP.md): the TypedGraph serving path for models
-without a lattice twin, and the micro-batching HTTP server.
+Either way a response never depends on which other requests share its
+group. The weights (and GIN's running statistics) come from a checkpoint
+directory written by either package's trainer (its latest version), or as
+a flax-layout tree (`variables=`).
+
+Not ported yet (ROADMAP.md): the micro-batching HTTP server.
 """
 from __future__ import annotations
 
@@ -25,43 +33,49 @@ import numpy as np
 import torch
 
 from . import convert
-from .config import parse_lattice_twin
-from .graph.typed_graph import bucket_size
+from .config import parse_gnn_model, parse_lattice_twin
+from .data.lattice_loader import lattice_batch_for_budget
+from .graph.build import build_batch_device
+from .graph.typed_graph import bucket_size, to_homogeneous
 from .models.lattice import build_lattice_device
 from .train.checkpoint import CheckpointManager
 from .utils import resolve_device, set_cuda_numerics, to_numpy, to_torch
 
 
 class SlidePredictor:
-    """Serves per-slide predictions of a trained lattice HEAT model.
+    """Serves per-slide predictions of a trained GNN.
 
     `config` is the training config dict (its GNN section picks the
     model). The weights are the latest version under `checkpoint_path`,
     or the model's flax-layout variable tree `variables` (numpy), or, when
     neither is given, the latest version under config['checkpoint']
-    ['path']. The predictor runs on `device` ('cuda' unless the caller
-    asks for 'cpu')."""
+    ['path']. `use_lattice=False` keeps a lattice-twin model on the
+    TypedGraph path. The predictor runs on `device` ('cuda' unless the
+    caller asks for 'cpu')."""
 
     def __init__(self, config: Dict, radius: int = 9, n_node_types: int = 6,
                  checkpoint_path: Optional[str] = None,
                  knn_impl: str = "exact", variables: Optional[Dict] = None,
-                 device=None):
+                 device=None, use_lattice: bool = True,
+                 lattice_mem_budget: int = 2 << 30):
         if variables is not None and checkpoint_path is not None:
             raise ValueError("pass checkpoint_path or variables, not both")
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             set_cuda_numerics()
-        model = parse_lattice_twin(config["GNN"])
-        if model is None:
-            raise NotImplementedError(
-                f"{config['GNN']['name']!r} has no lattice twin; the "
-                "TypedGraph serving path is not ported yet (ROADMAP.md)")
-        model.presence = "graph"  # per-slide occupancy: grouping-invariant
+        typed, self.is_hetero = parse_gnn_model(config["GNN"])
+        twin = parse_lattice_twin(config["GNN"]) if use_lattice else None
         if variables is None:
             path = checkpoint_path or config["checkpoint"]["path"]
             variables = CheckpointManager(path).restore_variables()
-        convert.load_flax_variables(model, variables)
-        self.model = model.to(self.device).eval()
+        convert.load_flax_variables(typed, variables)
+        self.typed_model = typed.to(self.device).eval()
+        self.model = None
+        if twin is not None:
+            twin.presence = "graph"  # per-slide occupancy
+            convert.load_flax_variables(twin, variables)
+            self.model = twin.to(self.device).eval()
+        self.lattice_mem_budget = int(lattice_mem_budget)
         self.config = config
         self.in_dim = int(config["GNN"]["in_dim"])
         self.radius = int(radius)
@@ -172,24 +186,49 @@ class SlidePredictor:
             mask[i, :n] = True
         return feats, ntypes, mask
 
+    def uses_lattice(self, batch: int, cap: int) -> bool:
+        """Whether a group of `batch` slides at node capacity `cap` takes
+        the lattice path (the JAX predictor's budget rule)."""
+        return self.model is not None and lattice_batch_for_budget(
+            self.radius - 1, cap, self.lattice_mem_budget,
+            max_batch=batch) == batch
+
+    def _predict_lattice(self, feats, ntypes, mask) -> torch.Tensor:
+        g = build_lattice_device(feats, ntypes, mask, self.radius,
+                                 self.n_node_types, knn_impl=self.knn_impl)
+        return torch.softmax(self.model(g), dim=-1)
+
+    def _predict_typed(self, feats, ntypes, mask) -> torch.Tensor:
+        """One forward per slide, each on its own graph."""
+        out = []
+        for i in range(feats.shape[0]):
+            g = build_batch_device(
+                feats[i:i + 1], ntypes[i:i + 1], mask[i:i + 1], self.radius,
+                self.n_node_types, knn_impl=self.knn_impl,
+                add_self_loops=not self.is_hetero)
+            if not self.is_hetero:
+                g = to_homogeneous(g)
+            out.append(torch.softmax(self.typed_model(g), dim=-1))
+        return torch.cat(out)
+
     def predict_many(self, slides: Sequence[Tuple[np.ndarray,
                                                   Optional[np.ndarray]]]
                      ) -> np.ndarray:
-        """[(features [N_i, D], node_types [N_i] | None)] -> probs [B, C],
-        one device call for the whole group."""
+        """[(features [N_i, D], node_types [N_i] | None)] -> probs [B, C]
+        for a group padded to one bucket."""
         t0 = time.perf_counter()
         feats, ntypes, mask = self.pack(slides)
+        lattice = self.uses_lattice(*feats.shape[:2])
+        fn = self._predict_lattice if lattice else self._predict_typed
         t1 = time.perf_counter()
         with self._lock:
             t2 = time.perf_counter()
-            key = feats.shape[:2]
+            key = (lattice,) + feats.shape[:2]
             cold = key not in self._warm_keys
             with torch.inference_mode():
-                g = build_lattice_device(
-                    to_torch(feats, self.device), to_torch(ntypes, self.device),
-                    to_torch(mask, self.device), self.radius,
-                    self.n_node_types, knn_impl=self.knn_impl)
-                probs = to_numpy(torch.softmax(self.model(g), dim=-1))
+                probs = to_numpy(fn(to_torch(feats, self.device),
+                                    to_torch(ntypes, self.device),
+                                    to_torch(mask, self.device)))
             t3 = time.perf_counter()
             self._warm_keys.add(key)
             self.timing["pack_ms"] += (t1 - t0) * 1e3

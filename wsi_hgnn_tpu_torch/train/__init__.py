@@ -1,9 +1,11 @@
-"""Training, evaluation and checkpoints on the lattice path."""
+"""Training, evaluation and checkpoints on the lattice and TypedGraph
+paths."""
 from .checkpoint import CheckpointManager
-from .evaluator import HomoGraphEvaluator, evaluate_lattice
+from .evaluator import HomoGraphEvaluator, evaluate
 from .metrics import accuracy, metrics
-from .trainer import GNNTrainer, lattice_train_step, select_dataset
+from .trainer import (GNNTrainer, lattice_train_step, select_dataset,
+                      typed_train_step)
 
 __all__ = ["CheckpointManager", "GNNTrainer", "HomoGraphEvaluator",
-           "accuracy", "evaluate_lattice", "lattice_train_step", "metrics",
-           "select_dataset"]
+           "accuracy", "evaluate", "lattice_train_step",
+           "metrics", "select_dataset", "typed_train_step"]

@@ -8,10 +8,14 @@
   <path>/training_stats.json    append-only JSON lines of epoch stats
 
 What the port writes under `params` is the flax tree name for name
-(`convert.params_to_flax`), `batch_stats` is {}, and `opt_state` has the
-layout of the optax chain that wsi_hgnn_tpu/config.py::parse_optimizer
-builds for the same config, so each package resumes the other's moments.
-`rng` is the port's own entry: the state bytes of its torch.Generator.
+(`convert.params_to_flax`), `batch_stats` the models' running statistics
+in flax's collection ({} for models without any), and `opt_state` has
+the layout of the optax chain that wsi_hgnn_tpu/config.py::parse_optimizer
+builds for the same config, so each package resumes the other's run.
+`rng` is a JAX PRNG key (uint32 [2]) holding a 64-bit seed that the
+trainer's torch.Generator was reseeded with when the version was
+written, so a resumed port run continues exactly as an uninterrupted one
+and the JAX trainer resumes with it as its key.
 """
 from __future__ import annotations
 
@@ -191,17 +195,17 @@ def load_opt_state_from_flax(optimizer: torch.optim.Optimizer,
         optimizer.state[p] = st
 
 
-def generator_state(generator: torch.Generator) -> np.ndarray:
-    return generator.get_state().numpy().copy()
+def generator_key(generator: torch.Generator) -> np.ndarray:
+    """A checkpoint's `rng`: a 64-bit seed drawn from `generator`, which is
+    then reseeded with it, as uint32 [low, high] (a JAX PRNG key)."""
+    seed = int(torch.randint(2 ** 63 - 1, (1,), generator=generator,
+                             device=generator.device).item())
+    generator.manual_seed(seed)
+    return np.array([seed & 0xFFFFFFFF, seed >> 32], np.uint32)
 
 
 def set_generator_state(generator: torch.Generator, rng: np.ndarray) -> None:
-    """Restore a generator from a checkpoint's `rng`. A JAX-written
-    checkpoint holds a PRNG key, not a torch state: the generator is then
-    seeded from the key's bytes."""
+    """Reseed a generator from a checkpoint's `rng` (the port's key or a
+    JAX-written one): its first 8 bytes, little-endian."""
     arr = np.asarray(rng)
-    current = generator.get_state()
-    if arr.dtype == np.uint8 and arr.size == current.numel():
-        generator.set_state(torch.from_numpy(arr.copy()))
-    else:
-        generator.manual_seed(int.from_bytes(arr.tobytes()[:8], "little"))
+    generator.manual_seed(int.from_bytes(arr.tobytes()[:8], "little"))

@@ -39,7 +39,7 @@ def to_torch(arr, device: torch.device, dtype: Optional[torch.dtype] = None
              ) -> torch.Tensor:
     """numpy (or array-like) -> tensor on `device`; pinned, asynchronous
     copy for host->card transfers."""
-    t = torch.from_numpy(np.ascontiguousarray(np.asarray(arr)))
+    t = torch.from_numpy(np.asarray(arr, order="C"))
     if dtype is not None:
         t = t.to(dtype)
     if device.type == "cuda":
