@@ -274,18 +274,13 @@ def _freeze(section):
 
 
 def test_parse_gnn_model_builds_every_shipped_config():
-    """88 of the 89 shipped model configs build in the port, with the JAX
-    model's heterogeneity and its variable tree leaf for leaf (shapes
-    included); the ASAP config raises NotImplementedError naming its
-    queue."""
+    """All 89 shipped model configs build in the port, ASAPGCN included,
+    with the JAX model's heterogeneity and its variable tree leaf for leaf
+    (shapes included)."""
     built = 0
     for path in _gnn_configs():
         section = load_config(path)["GNN"]
         assert jax_load_config(path)["GNN"] == section
-        if section.get("graph_pooling_type") == "asap":
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                parse_gnn_model(section)
-            continue
         model, hetero = parse_gnn_model(section)
         want_hetero, want = _jax_param_shapes(_freeze(section))
         assert hetero == want_hetero, path
@@ -293,7 +288,7 @@ def test_parse_gnn_model_builds_every_shipped_config():
                flat(convert.to_flax_variables(model)).items()}
         assert got == want, path
         built += 1
-    assert built == 88
+    assert built == 89
 
 
 def test_no_port_file_imports_jax():

@@ -187,8 +187,8 @@ def parse_gnn_model(config_gnn: Dict) -> Tuple[torch.nn.Module, bool]:
     are [num_heads] * num_layers + [num_out_heads]; HGT ignores
     graph_pooling_type; HetRGCN has len(edge_types) edge types; the
     TypedGraph HEAT models default to typed_impl 'onehot'."""
-    from .models import (GAT, GCN, GIN, HEATNet2, HEATNet4, HGT, HetRGCN,
-                         NTPoolGCN)
+    from .models import (ASAPGCN, GAT, GCN, GIN, HEATNet2, HEATNet4, HGT,
+                         HetRGCN, NTPoolGCN)
 
     c = config_gnn
     name = c["name"]
@@ -202,9 +202,12 @@ def parse_gnn_model(config_gnn: Dict) -> Tuple[torch.nn.Module, bool]:
                    negative_slope=float(c["negative_slope"]), residual=False,
                    graph_pooling_type=c["graph_pooling_type"]), False
     if name == "GCN" and c.get("graph_pooling_type") == "asap":
-        raise NotImplementedError(
-            "GCN with graph_pooling_type 'asap' (models/asap.py, ASAPGCN) is "
-            "not ported yet; it is queued in ROADMAP.md after BatchingServer")
+        return ASAPGCN(in_dim=int(c["in_dim"]),
+                       hidden_dim=int(c["hidden_dim"]),
+                       out_dim=int(c["out_dim"]),
+                       n_layers=int(c["num_layers"]),
+                       k=int(c.get("pool_k", 32)),
+                       dropout=float(c["feat_drop"])), False
     if name == "GCN":
         return GCN(in_dim=int(c["in_dim"]), hidden_dim=int(c["hidden_dim"]),
                    out_dim=int(c["out_dim"]), n_layers=int(c["num_layers"]),

@@ -1,7 +1,7 @@
-"""Data layer of the port: slide-graph datasets, npz storage, the
-TypedGraph and lattice-form host batching pipelines."""
+"""Data layer of the port: the slide lister, slide-graph datasets, npz
+storage, the TypedGraph and lattice-form host batching pipelines."""
 from .datasets import (GraphDataset, TCGACancerStageDataset,
-                       TCGACancerTypingDataset, load_graph_npz,
+                       TCGACancerTypingDataset, WSIData, load_graph_npz,
                        save_graph_npz)
 from .lattice_loader import (LatticeLoader, lattice_batch_for_budget,
                              pack_slide, probe_lattice_and_capacities,
@@ -9,7 +9,7 @@ from .lattice_loader import (LatticeLoader, lattice_batch_for_budget,
 from .loader import GraphLoader, dataset_capacities, prefetched_batches
 
 __all__ = ["GraphDataset", "GraphLoader", "LatticeLoader",
-           "TCGACancerStageDataset", "TCGACancerTypingDataset",
+           "TCGACancerStageDataset", "TCGACancerTypingDataset", "WSIData",
            "dataset_capacities", "lattice_batch_for_budget", "load_graph_npz",
            "pack_slide", "prefetched_batches", "probe_lattice_and_capacities",
            "save_graph_npz", "slide_lattice_geometry"]

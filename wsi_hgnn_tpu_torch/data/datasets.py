@@ -80,6 +80,25 @@ def _tcga_pos(s: str) -> int:
     return pos
 
 
+class WSIData:
+    """Recursive .svs/.tif slide lister (the reference's WSIData)."""
+
+    def __init__(self, data_root):
+        import glob as _glob
+
+        self.data_root = str(data_root)
+        self.data_list = []
+        for type_ in ("*.svs", "*.tif"):
+            self.data_list.extend(
+                _glob.glob(self.data_root + "/**/" + type_, recursive=True))
+
+    def __len__(self):
+        return len(self.data_list)
+
+    def __getitem__(self, index):
+        return self.data_list[index]
+
+
 class GraphDataset:
     """Cancer classification: tumor (1) vs normal (0) by barcode list."""
 

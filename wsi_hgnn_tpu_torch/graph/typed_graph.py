@@ -95,16 +95,14 @@ class TypedGraph:
         return out.index_add_(0, self.edge_rel(), self.edge_mask.long())
 
     def degrees(self, implicit_self_loops: bool = False):
-        """(out_degree[N], in_degree[N]) f32 over real edges;
-        `implicit_self_loops` adds 1 to both for real nodes, as
-        dgl.add_self_loop would."""
-        ones = self.edge_mask.to(torch.float32)
-        out_deg = torch.zeros(self.num_nodes, device=ones.device
-                              ).index_add_(0, self.src, ones)
-        in_deg = torch.zeros(self.num_nodes, device=ones.device
-                             ).index_add_(0, self.dst, ones)
+        """(out_degree[N], in_degree[N]) over real edges, in the features'
+        float type; `implicit_self_loops` adds 1 to both for real nodes,
+        as dgl.add_self_loop would."""
+        ones = self.edge_mask.to(self.feat.dtype)
+        out_deg = ones.new_zeros(self.num_nodes).index_add_(0, self.src, ones)
+        in_deg = ones.new_zeros(self.num_nodes).index_add_(0, self.dst, ones)
         if implicit_self_loops:
-            real = self.node_mask.to(torch.float32)
+            real = self.node_mask.to(ones.dtype)
             out_deg = out_deg + real
             in_deg = in_deg + real
         return out_deg, in_deg

@@ -32,12 +32,13 @@ from .layers import (DropSource, LinearAttentionBlock, TypedDense, TypedHeads,
 
 
 def _presence(g: TypedGraph):
-    """(present_rel [R] bool, dst_denom [T] f32, src_denom [T] f32,
-    type_present [T] bool): relation and node-type occupancy of g."""
+    """(present_rel [R] bool, dst_denom [T], src_denom [T] in the
+    features' float type, type_present [T] bool): relation and node-type
+    occupancy of g."""
     t = g.n_node_types
     present = g.rel_edge_counts() > 0
     rel_ids = torch.arange(g.n_relations, device=present.device)
-    pf = present.to(torch.float32)
+    pf = present.to(g.feat.dtype)
     dst_denom = ops.segment_sum(pf, rel_ids % t, t)
     src_denom = ops.segment_sum(pf, (rel_ids // t) % t, t)
     counts = g.node_type_counts().reshape(g.n_graphs, t).sum(0)

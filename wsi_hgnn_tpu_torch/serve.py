@@ -1,5 +1,5 @@
-"""Slide-to-prediction serving (counterpart of
-wsi_hgnn_tpu/serve.py::SlidePredictor).
+"""Slide-to-prediction serving (counterpart of wsi_hgnn_tpu/serve.py):
+`SlidePredictor` and the micro-batching HTTP server `BatchingServer`.
 
 A request carries patch features [N, D] (+ node types), or raw patch
 pixels once `enable_pixels` attached the two-CNN encoder (KimiaNet
@@ -18,16 +18,28 @@ predictor chooses:
 
 Either way a response never depends on which other requests share its
 group. The weights (and GIN's running statistics) come from a checkpoint
-directory written by either package's trainer (its latest version), or as
-a flax-layout tree (`variables=`).
+directory written by either package's trainer (its latest version, which
+`version` reports), or as a flax-layout tree (`variables=`, no version).
 
-Not ported yet (ROADMAP.md): the micro-batching HTTP server.
+`BatchingServer` is a stdlib ThreadingHTTPServer: handler threads decode
+and validate requests and queue them; one batcher thread groups up to
+`max_batch` requests of one bucket (kind 'px' or 'ft', size bucket) that
+arrive within `max_wait_ms` into one `predict_many` call. Wire format:
+POST /predict with an .npz body holding `features` [N, D] f32 (+
+`node_types` [N] int) or `pixels` [N, P, P, 3] uint8 / f32 in [0, 1],
+answered with JSON {"probs": [...], "pred": k, "latency_ms": t}; GET
+/healthz and GET /stats.
 """
 from __future__ import annotations
 
+import io
+import json
 import threading
 import time
-from typing import Dict, Optional, Sequence, Tuple
+from collections import deque
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from queue import Empty, Queue
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -49,7 +61,8 @@ class SlidePredictor:
     model). The weights are the latest version under `checkpoint_path`,
     or the model's flax-layout variable tree `variables` (numpy), or, when
     neither is given, the latest version under config['checkpoint']
-    ['path']. `use_lattice=False` keeps a lattice-twin model on the
+    ['path']; `version` is the checkpoint version served (None for
+    `variables`). `use_lattice=False` keeps a lattice-twin model on the
     TypedGraph path. The predictor runs on `device` ('cuda' unless the
     caller asks for 'cpu')."""
 
@@ -65,9 +78,12 @@ class SlidePredictor:
             set_cuda_numerics()
         typed, self.is_hetero = parse_gnn_model(config["GNN"])
         twin = parse_lattice_twin(config["GNN"]) if use_lattice else None
+        self.version = None
         if variables is None:
-            path = checkpoint_path or config["checkpoint"]["path"]
-            variables = CheckpointManager(path).restore_variables()
+            manager = CheckpointManager(
+                checkpoint_path or config["checkpoint"]["path"])
+            variables = manager.restore_variables()
+            self.version = manager.version
         convert.load_flax_variables(typed, variables)
         self.typed_model = typed.to(self.device).eval()
         self.model = None
@@ -252,3 +268,317 @@ class SlidePredictor:
         t = rng.randint(0, self.n_node_types, n_patches).astype(np.int32)
         for b in batch_sizes:
             self.predict_many([(f, t)] * b)
+
+
+# --------------------------------------------------------------------- #
+# micro-batching HTTP server
+# --------------------------------------------------------------------- #
+class _Request:
+    __slots__ = ("features", "node_types", "pixels", "bucket", "event",
+                 "probs", "error")
+
+    def __init__(self, features, node_types, pixels=None):
+        self.features = features
+        self.node_types = node_types
+        self.pixels = pixels
+        # only same-bucket requests share a group (a small slide never pays
+        # a big one's padding); pixel requests run the encoder first, so
+        # they never group with feature requests
+        n = len(features) if pixels is None else len(pixels)
+        self.bucket = ("px" if pixels is not None else "ft",
+                       bucket_size(n, base=256))
+        self.event = threading.Event()
+        self.probs: Optional[np.ndarray] = None
+        self.error: Optional[str] = None
+
+
+class BatchingServer:
+    """HTTP front end with a micro-batching device loop.
+
+    Handler threads enqueue requests; one batcher thread drains the queue,
+    groups up to `max_batch` same-bucket requests that arrive within
+    `max_wait_ms` of the first, and issues one `predict_many` per group.
+    `pad_batches` pads every group to `max_batch` with repeats of its
+    first slide (extra outputs dropped), so each bucket runs at one batch
+    size; a response never depends on its batch-mates. Bodies over
+    `max_body_mb` are refused before they are read."""
+
+    def __init__(self, predictor: SlidePredictor, host: str = "127.0.0.1",
+                 port: int = 0, max_batch: int = 8,
+                 max_wait_ms: float = 5.0, pad_batches: bool = True,
+                 max_body_mb: float = 256.0):
+        self.predictor = predictor
+        self.max_batch = int(max_batch)
+        self.max_wait = max_wait_ms / 1e3
+        self.max_body = int(max_body_mb * (1 << 20))
+        self.pad_batches = pad_batches
+        self.queue: "Queue[_Request]" = Queue()
+        # other-bucket requests set aside while a group forms (the batcher
+        # owns it; _fail_pending may drain it on shutdown)
+        self._backlog: "deque[_Request]" = deque()
+        self.stats = {
+            "requests": 0, "batches": 0, "errors": 0,
+            "batched_requests_max": 0, "latency_ms_sum": 0.0,
+            "decode_ms_sum": 0.0,  # body read + npz decode, per request
+        }
+        self._stats_lock = threading.Lock()
+        self._stop = threading.Event()
+        self.httpd = ThreadingHTTPServer((host, port),
+                                         _make_handler(self))
+        self.httpd.daemon_threads = True
+        self.port = self.httpd.server_address[1]
+        self._threads: List[threading.Thread] = []
+
+    # -- request intake (handler threads) ---------------------------------- #
+    def validate(self, feats, ntypes, pixels) -> Optional[str]:
+        """Why a decoded request cannot be served, or None; checked per
+        request so one bad payload fails alone, not its group."""
+        pred = self.predictor
+        if pixels is not None:
+            if not pred.pixels_enabled:
+                return ("server not configured for pixel requests (no "
+                        "featurizer attached)")
+            ps = pred._patch_size
+            if (pixels.ndim != 4 or pixels.shape[0] == 0
+                    or pixels.shape[1:] != (ps, ps, 3)):
+                return f"pixels must be [N, {ps}, {ps}, 3]"
+            if pixels.dtype not in (np.uint8, np.float32):
+                return "pixels must be uint8 or float32"
+            return None
+        if feats.ndim != 2 or feats.shape[0] == 0:
+            return "features must be [N, D]"
+        if feats.shape[1] != pred.in_dim:
+            return (f"feature dim {feats.shape[1]} != model in_dim "
+                    f"{pred.in_dim}")
+        if ntypes is not None:
+            if ntypes.ndim != 1 or len(ntypes) != len(feats):
+                return "node_types must be [N] matching features"
+            # an out-of-range id would index past the type tables
+            if int(ntypes.min()) < 0 or int(ntypes.max()) >= pred.n_node_types:
+                return f"node_types must be in [0, {pred.n_node_types})"
+        return None
+
+    def submit(self, req: _Request) -> None:
+        """Queue `req` and wait until the batcher (or shutdown) completes
+        it."""
+        self.queue.put(req)
+        if self._stop.is_set():
+            # raced with shutdown: the batcher's drain may already have run
+            self._fail_pending("server stopped")
+        req.event.wait()
+
+    # -- the batcher ------------------------------------------------------- #
+    def _fail_pending(self, msg: str) -> None:
+        """Complete every queued or set-aside request with an error, so no
+        handler thread waits forever (idempotent)."""
+        while True:
+            r = self._pop_backlog()
+            if r is None:
+                break
+            r.error = msg
+            r.event.set()
+        while True:
+            try:
+                r = self.queue.get_nowait()
+            except Empty:
+                break
+            r.error = msg
+            r.event.set()
+
+    def _pop_backlog(self) -> Optional[_Request]:
+        # _fail_pending may drain the backlog concurrently during shutdown
+        try:
+            return self._backlog.popleft()
+        except IndexError:
+            return None
+
+    def _batcher(self) -> None:
+        try:
+            while not self._stop.is_set():
+                self._batch_once()
+        finally:
+            self._stop.set()
+            self._fail_pending("server stopped")
+
+    def _batch_once(self) -> None:
+        first = self._pop_backlog()
+        if first is None:
+            try:
+                first = self.queue.get(timeout=0.1)
+            except Empty:
+                return
+        group = [first]
+        try:
+            skipped: List[_Request] = []
+            deadline = time.perf_counter() + self.max_wait
+            while len(group) < self.max_batch:
+                # same-bucket requests set aside earlier come first
+                while len(group) < self.max_batch:
+                    r = self._pop_backlog()
+                    if r is None:
+                        break
+                    (group if r.bucket == first.bucket else skipped).append(r)
+                if len(group) >= self.max_batch:
+                    break
+                remaining = deadline - time.perf_counter()
+                if remaining <= 0:
+                    break
+                try:
+                    r = self.queue.get(timeout=remaining)
+                except Empty:
+                    break
+                (group if r.bucket == first.bucket else skipped).append(r)
+            # other-bucket arrivals keep their order for the next round
+            self._backlog.extendleft(reversed(skipped))
+            try:
+                if first.pixels is not None:
+                    # featurize each slide, then the feature path; padding
+                    # repeats features, never pixels
+                    slides = [self.predictor.featurize(r.pixels)
+                              for r in group]
+                else:
+                    slides = [(r.features, r.node_types) for r in group]
+                if self.pad_batches and len(slides) < self.max_batch:
+                    slides += [slides[0]] * (self.max_batch - len(slides))
+                probs = self.predictor.predict_many(slides)[:len(group)]
+                for r, p in zip(group, probs):
+                    r.probs = p
+            except Exception as e:  # the group's error goes to each waiter
+                for r in group:
+                    r.error = f"{type(e).__name__}: {e}"
+            with self._stats_lock:
+                self.stats["batches"] += 1
+                self.stats["batched_requests_max"] = max(
+                    self.stats["batched_requests_max"], len(group))
+        finally:
+            # every grouped request completes, even when a BaseException
+            # (KeyboardInterrupt on a main-thread batcher) ends the round
+            for r in group:
+                if r.probs is None and r.error is None:
+                    r.error = "server error"
+                r.event.set()
+
+    # -- lifecycle ----------------------------------------------------------- #
+    def warmup(self, n_patches: int, feat_dim: Optional[int] = None,
+               pixels: bool = False) -> None:
+        """Run the shapes this server dispatches (batch max_batch, as
+        pad_batches pads every group) before serving; pixels=True also
+        runs one encoder chunk."""
+        if pixels:
+            self.predictor.warmup_pixels(n_patches,
+                                         batch_sizes=(self.max_batch,))
+        else:
+            self.predictor.warmup(n_patches, feat_dim=feat_dim,
+                                  batch_sizes=(self.max_batch,))
+
+    def start(self) -> None:
+        """The batcher and the accept loop in background threads."""
+        for target in (self._batcher, self.httpd.serve_forever):
+            t = threading.Thread(target=target, daemon=True)
+            t.start()
+            self._threads.append(t)
+
+    def stop(self) -> None:
+        self._stop.set()
+        # httpd.shutdown() waits for serve_forever(), forever if it never
+        # ran
+        if self._threads:
+            self.httpd.shutdown()
+        self.httpd.server_close()
+        self._fail_pending("server stopped")
+        for t in self._threads:
+            t.join(timeout=10)
+
+    def serve_forever(self) -> None:
+        """Blocking: the accept loop in a background thread, the batcher
+        (all device work) on the calling thread, until interrupted."""
+        t = threading.Thread(target=self.httpd.serve_forever, daemon=True)
+        t.start()
+        self._threads.append(t)
+        try:
+            self._batcher()
+        except KeyboardInterrupt:
+            pass
+        finally:
+            self.stop()
+
+
+def _make_handler(server: BatchingServer):
+    class Handler(BaseHTTPRequestHandler):
+        def log_message(self, *args):  # quiet
+            pass
+
+        def _reply(self, code: int, payload: Dict) -> None:
+            body = json.dumps(payload).encode()
+            self.send_response(code)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def do_GET(self):
+            if self.path == "/healthz":
+                self._reply(200, {"status": "ok",
+                                  "model_version": server.predictor.version})
+            elif self.path == "/stats":
+                with server._stats_lock:
+                    self._reply(200, dict(server.stats))
+            else:
+                self._reply(404, {"error": "not found"})
+
+        def do_POST(self):
+            if self.path != "/predict":
+                self._reply(404, {"error": "not found"})
+                return
+            t0 = time.perf_counter()
+            try:
+                length = int(self.headers.get("Content-Length", 0))
+            except ValueError:
+                length = -1
+            if length < 0:
+                # a negative length would make read() block until EOF
+                self._reply(400, {"error": "bad Content-Length"})
+                return
+            if length > server.max_body:
+                self._reply(413, {"error": f"body {length} bytes exceeds "
+                                           f"limit {server.max_body}"})
+                return
+            t_dec = time.perf_counter()
+            try:
+                with np.load(io.BytesIO(self.rfile.read(length)),
+                             allow_pickle=False) as z:
+                    pixels = feats = ntypes = None
+                    if "pixels" in z:
+                        pixels = np.asarray(z["pixels"])
+                    else:
+                        feats = np.asarray(z["features"], np.float32)
+                        ntypes = (np.asarray(z["node_types"], np.int32)
+                                  if "node_types" in z else None)
+            except Exception as e:  # any undecodable body is the client's
+                self._reply(400, {"error": f"bad request: {e}"})
+                return
+            with server._stats_lock:
+                server.stats["decode_ms_sum"] += (
+                    time.perf_counter() - t_dec) * 1e3
+            problem = server.validate(feats, ntypes, pixels)
+            if problem is not None:
+                self._reply(400, {"error": problem})
+                return
+            if server._stop.is_set():
+                self._reply(503, {"error": "server stopping"})
+                return
+            req = _Request(feats, ntypes, pixels=pixels)
+            server.submit(req)
+            dt = (time.perf_counter() - t0) * 1e3
+            with server._stats_lock:
+                server.stats["requests"] += 1
+                server.stats["latency_ms_sum"] += dt
+                server.stats["errors"] += int(req.error is not None)
+            if req.error is not None:
+                self._reply(500, {"error": req.error})
+            else:
+                self._reply(200, {"probs": [float(p) for p in req.probs],
+                                  "pred": int(np.argmax(req.probs)),
+                                  "latency_ms": round(dt, 2)})
+
+    return Handler
