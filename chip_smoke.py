@@ -56,6 +56,17 @@
    slide's features against the encoder given the same weights as flax
    variables, its graph against the CPU plain path, a `GNNTrainer` epoch
    on the written files; seconds per slide by stage.
+9. Tiling and the other encoders (tile_build, after 8.): a seeded
+   8192x6144 slide image tiled by `python -m
+   wsi_hgnn_tpu_torch.get_patches` (PIL backend, spawned workers), then
+   `construct_all` on the card over its tiles with
+   configs/GraphConstruction/COAD_Hovernet_graph_constructor.yml
+   ('hover': HoVer-Net with its fc1 at 1024, seeded on the card) and with
+   BRCA_HovernetEfficient_graph_constructor.yml (EfficientNet-B4 and
+   inline typing from seeded weight files); ms per slide by stage, ms per
+   patch in the encoder, peak memory, busy share and KNN launches per
+   config, each CNN on the card against the CPU in f32 and the written
+   bf16 features against the CPU's f32.
 The zoo (6.) also trains, evaluates and serves GCN with ASAP pooling
 (configs/BRCA/GCN_asap_classification.yml). The card-vs-CPU steps compare
 every parameter's gradient, with a float64 CPU step as the judge of
@@ -64,7 +75,7 @@ zeroed before each phase's main path and read after it.
 
 The line before the last is the kernels JSON (launches summed over the
 served requests, the server traffic, the training slice, the zoo's
-served slides and the construction), the last line the device JSON. Any
+served slides and the constructions), the last line the device JSON. Any
 failed check exits non-zero. Imports nothing of JAX.
 """
 from __future__ import annotations
@@ -448,7 +459,8 @@ def slice_phase(torch, dev, card, kernels, root: Path, gnn=GNN,
         cfg, {"params": gnn_vars["params"], "batch_stats": {}}, {"Epoch": 1})
     kimia = convert.init_flax_like_(KimiaNet(), seed=1).eval()
     kimia_vars = convert.to_flax_variables(kimia)
-    hover = convert.init_flax_like_(HoVerNet(N_TYPES, "fast"), seed=2).eval()
+    hover = convert.init_flax_like_(HoVerNet.typing(N_TYPES, "fast"),
+                                    seed=2).eval()
     hover_vars = convert.to_flax_variables(hover)
     pred = SlidePredictor(cfg, radius=RADIUS, n_node_types=N_TYPES,
                           device=dev)
@@ -758,7 +770,8 @@ def profile_span(torch, fn, what: str, card: str, top: int = 12):
     union of its kernel and copy intervals over the call's host-clock
     span) and the kernels that took the most device time, plus the port's
     own kernels wherever they rank. A profiler that records no device
-    activity leaves both unmeasured; it fails nothing."""
+    activity leaves both unmeasured; it fails nothing. Returns the busy
+    share, or None when unmeasured."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -778,7 +791,7 @@ def profile_span(torch, fn, what: str, card: str, top: int = 12):
     if not dev:
         log(f"profile of {what}: torch.profiler recorded no device "
             f"activity; busy share not measured [{card}]")
-        return
+        return None
     busy, reach, per_name = 0.0, span.start, {}
     for start, end, name in dev:
         lo, hi = max(start, reach), min(end, span.end)
@@ -798,6 +811,7 @@ def profile_span(torch, fn, what: str, card: str, top: int = 12):
     for name, us in ranked[top:]:   # the port's own kernels, wherever they rank
         if any(k in name for k in PORT_KERNELS):
             log(f"  {us / 1e3:9.2f} ms {us / dev_total:6.3f}  {name[:100]}")
+    return busy / wall
 
 
 # ---------------------------------------------------------------------------
@@ -1413,7 +1427,7 @@ def write_reference_weights(torch, root: Path):
 
     kimia = bridge.to_flax_variables(bridge.init_flax_like_(KimiaNet(), 11))
     hover = bridge.to_flax_variables(bridge.init_flax_like_(
-        HoVerNet(N_TYPES, "fast"), 12))
+        HoVerNet.typing(N_TYPES, "fast"), 12))
     kpath, hpath = root / "KimiaNetPyTorchWeights.pth", root / "hovernet.tar"
     torch.save({k: torch.from_numpy(v) for k, v in
                 convert.kimianet_state_dict(kimia).items()}, kpath)
@@ -1556,6 +1570,219 @@ def construct_phase(torch, dev, card, kernels, root: Path,
     return launches
 
 
+TILE_SLIDE = (8192, 6144)   # px: 32 x 24 tiles of 256
+TILE_CONFIGS = ("configs/GraphConstruction/COAD_Hovernet_graph_constructor.yml",
+                "configs/GraphConstruction/BRCA_HovernetEfficient_graph_constructor.yml")
+TILE_CHECK = 2              # patches of the card-vs-CPU checks
+
+
+def write_tissue_slide(path: Path, seed: int = 70):
+    """A seeded slide image: white background with three overlapping
+    elliptical 'tissue' regions of 8x8-pixel colour blocks."""
+    import numpy as np
+    from PIL import Image
+
+    w, h = TILE_SLIDE
+    rng = np.random.RandomState(seed)
+    img = np.kron(rng.randint(40, 230, (h // 8, w // 8, 3)).astype(np.uint8),
+                  np.ones((8, 8, 1), np.uint8))
+    yy, xx = np.mgrid[0:h, 0:w]
+    tissue = np.zeros((h, w), bool)
+    for cx, cy, rx, ry in ((0.33, 0.47, 0.34, 0.44), (0.69, 0.53, 0.31, 0.42),
+                           (0.50, 0.22, 0.24, 0.18)):
+        tissue |= (((xx - cx * w) / (rx * w)) ** 2
+                   + ((yy - cy * h) / (ry * h)) ** 2) < 1
+    img[~tissue] = 255
+    path.parent.mkdir(parents=True, exist_ok=True)
+    Image.fromarray(img).save(path, quality=90)
+
+
+def rel_l2_max(np, got, want):
+    return float((np.linalg.norm(got - want, axis=1)
+                  / np.linalg.norm(want, axis=1)).max())
+
+
+def tile_build_phase(torch, dev, card, kernels, root: Path):
+    """Slide image -> tiles -> graphs: a seeded 8192x6144 slide tiled by
+    `python -m wsi_hgnn_tpu_torch.get_patches` at one magnification (PIL
+    backend, 8 spawned workers), then construct_all on the card over its
+    tiles with COAD_Hovernet_graph_constructor.yml ('hover': HoVer-Net
+    with fc1 at 1024, seeded on the card) and with
+    BRCA_HovernetEfficient_graph_constructor.yml (EfficientNet-B4 and
+    inline HoVer-Net typing from seeded weight files), each config's
+    chunk size and knn_impl, only the paths redirected. Per config: ms
+    per slide by stage, ms per patch in the encoder, peak device memory,
+    the device busy share (a second construction, profiled, its encoder
+    built outside the profiled span) and the KNN
+    kernel's launches (counters zeroed just before, read just after; at
+    least 1). Then each CNN on the card against the CPU on TILE_CHECK
+    patches in f32 (relative L2 1e-3, 'hover' types equal), and the
+    written bf16 features against the CPU's f32 (relative L2 0.1).
+    Returns the launch counts of the two constructions."""
+    import os
+
+    import numpy as np
+
+    from wsi_hgnn_tpu_torch import convert as bridge
+    from wsi_hgnn_tpu_torch import get_patches
+    from wsi_hgnn_tpu_torch.config import load_config
+    from wsi_hgnn_tpu_torch.models.featurizers import (
+        EfficientNet, HoVerNet, convert, efficientnet_apply,
+        hovernet_full_apply, load_cnn_variables, make_hovernet)
+    from wsi_hgnn_tpu_torch.pipeline import (build_default_encoder,
+                                             construct_all,
+                                             iter_patch_batches, list_patches)
+    from wsi_hgnn_tpu_torch.profiling import GLOBAL_TIMER
+    from wsi_hgnn_tpu_torch.utils import set_cuda_numerics
+
+    slide = "TCGA-SY-0001-01Z-00-DX1"
+    write_tissue_slide(root / "data" / "SYN" / "tumor" / f"{slide}.jpeg")
+    t0 = time.perf_counter()
+    cwd = os.getcwd()
+    os.chdir(root)
+    try:
+        out_base = get_patches.main(["-d", "SYN", "-v", "jpeg", "-b", "40",
+                                     "-o", "40", "-j", "8", "-m", "0"])
+    finally:
+        os.chdir(cwd)
+    t_tile = time.perf_counter() - t0
+    bag = root / out_base / "tumor" / slide
+    paths = list_patches(bag)
+    n_tiles = (TILE_SLIDE[0] // 256) * (TILE_SLIDE[1] // 256)
+    check(0 < len(paths) < n_tiles, f"tiling kept {len(paths)} of "
+          f"{n_tiles} tiles")
+    log(f"tile_build: {TILE_SLIDE[0]}x{TILE_SLIDE[1]} seeded slide tiled by "
+        f"get_patches (1 magnification, PIL backend, 8 spawned workers): "
+        f"{len(paths)} of {n_tiles} tiles kept in {t_tile:.2f} s")
+    check_px = next(iter_patch_batches(paths[:TILE_CHECK], TILE_CHECK,
+                                       out_dtype="uint8"))
+
+    # a seeded weight file of the HoVer-Net typing net, under the
+    # reference's names, for the EfficientNet config
+    hover_t = bridge.to_flax_variables(bridge.init_flax_like_(
+        HoVerNet.typing(N_TYPES, "fast"), 31))
+    torch.save({"desc": {k: torch.from_numpy(v) for k, v in
+                         convert.hovernet_state_dict(hover_t).items()}},
+               root / "hovernet_typing.tar")
+
+    total = {}
+    for cfg_path in TILE_CONFIGS:
+        cfg = load_config(ROOT / cfg_path)
+        gcfg, hcfg, kcfg = (cfg["graph_constructor"], cfg["hovernet_config"],
+                            cfg["kimianet_config"])
+        name = gcfg["encoder_name"]
+        gcfg.update(patch_path=str(root / out_base) + "/",
+                    out_dir=str(root / f"graphs_{name}"))
+        feat_dim = int(gcfg["feature_dim"])
+        if name == "hover":
+            hcfg["hovernet_model_path"] = str(root / "absent.tar")
+        else:
+            # EfficientNet-B4 with its feat_dim-way fc, seeded, under
+            # efficientnet_pytorch's names
+            eff_tree = bridge.to_flax_variables(bridge.init_flax_like_(
+                EfficientNet.from_name(name, feat_dim), 32))
+            torch.save({k: torch.from_numpy(v) for k, v in
+                        convert.efficientnet_state_dict(eff_tree).items()},
+                       root / "efficientnet-b4.pth")
+            del eff_tree
+            hcfg["hovernet_model_path"] = str(root / "hovernet_typing.tar")
+            gcfg["efficientnet_model_path"] = str(root / "efficientnet-b4.pth")
+        check(name in ("hover", "efficientnet-b4")
+              and gcfg["knn_impl"] == "pallas" and gcfg["radius"] == RADIUS
+              and gcfg["feature_dim"] == 1024 and hcfg["batch_size"] == CHUNK,
+              f"{cfg_path} is not the config this phase states: {gcfg}")
+        # ---- the main path: counters from 0 -----------------------------
+        for table in (GLOBAL_TIMER.totals, GLOBAL_TIMER.counts):
+            table.clear()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        written = construct_all(gcfg, hcfg, kcfg, device=dev, verbose=False)
+        torch.cuda.synchronize()
+        t_build = time.perf_counter() - t0
+        launches = kernels.launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        stages = {k.split("/", 1)[1]: v * 1e3 for k, v in
+                  GLOBAL_TIMER.totals.items() if k.startswith("construct/")}
+        check(written == 1, f"{name}: construct_all wrote {written} slides")
+        check(launches["knn_l2_fused"] >= 1, f"{name}: the KNN kernel was "
+              f"not launched ({launches})")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        with np.load(Path(gcfg["out_dir"]) / "heterogeneous"
+                     / f"{slide}.npz") as z:
+            feat, n_edges = z["feat"], len(z["src"])
+        types = np.load(Path(gcfg["out_dir"]) / "node_types" / f"{slide}.npy")
+        check(feat.shape == (len(paths), feat_dim) and np.isfinite(feat).all()
+              and n_edges == len(paths) * (RADIUS - 1),
+              f"{name}: graph of {feat.shape} features, {n_edges} edges")
+        # the busy share: the same construction again, its encoder built
+        # before the profiled span
+        enc = build_default_encoder(gcfg, hcfg, kcfg, dev)
+        for table in (GLOBAL_TIMER.totals, GLOBAL_TIMER.counts):
+            table.clear()
+        t0 = time.perf_counter()
+        busy = profile_span(
+            torch, lambda: construct_all(
+                dict(gcfg, out_dir=str(root / f"profiled_{name}")), hcfg,
+                kcfg, encoder=enc, device=dev, verbose=False),
+            f"construct_all ({name}, {len(paths)} patches, encoder built)",
+            card, top=6)
+        t_warm = time.perf_counter() - t0
+        warm_ms = GLOBAL_TIMER.totals.get("construct/featurize/encode", 0.0
+                                          ) * 1e3 / len(paths)
+        del enc
+
+        # ---- card against CPU, f32, on TILE_CHECK patches ---------------
+        set_cuda_numerics()
+        x = torch.from_numpy(check_px).float() / 255.0
+        with torch.inference_mode():
+            if name == "hover":
+                model = make_hovernet(hcfg, N_TYPES, dev, feat_dim=feat_dim)
+                f_card, t_card = (a.cpu().numpy() for a in
+                                  hovernet_full_apply(model, x.to(dev)))
+                model = model.cpu()   # the same weights, fc1 included
+                f_cpu, t_cpu = (a.numpy() for a in
+                                hovernet_full_apply(model, x))
+                types_ok = np.array_equal(t_card, t_cpu)
+            else:
+                model = EfficientNet.from_name(name, feat_dim)
+                bridge.load_flax_variables(model, load_cnn_variables(
+                    "efficientnet", model, gcfg["efficientnet_model_path"],
+                    0)).eval()
+                f_cpu = efficientnet_apply(model, x).numpy()
+                f_card = efficientnet_apply(model.to(dev), x.to(dev)
+                                            ).cpu().numpy()
+                types_ok = True
+        del model
+        torch.cuda.empty_cache()
+        rel = rel_l2_max(np, f_card, f_cpu)
+        rel_bf16 = rel_l2_max(np, feat[:TILE_CHECK], f_cpu)
+        check(rel <= 1e-3 and types_ok, f"{name}: card f32 vs CPU relative "
+              f"L2 {rel} (types equal: {types_ok})")
+        check(rel_bf16 <= 0.1, f"{name}: written bf16 features vs CPU f32 "
+              f"relative L2 {rel_bf16}")
+        typing = ("types equal" if name == "hover" else
+                  f"{int((types > 0).sum())} of {len(types)} patches typed "
+                  f"nonzero")
+        enc_ms = stages.get("featurize/encode", 0.0) / len(paths)
+        log(f"tile_build {name} ({cfg_path}; chunk {CHUNK}, knn_impl "
+            f"pallas, radius {RADIUS}): 1 slide of {len(paths)} patches in "
+            f"{t_build * 1e3:.1f} ms; card f32 vs CPU max rel L2 {rel:.3g} "
+            f"(<= 1e-3), {typing}; written bf16 vs CPU f32 {rel_bf16:.3g} "
+            f"(<= 0.1); launches {launches} [{card}]")
+        log(f"timing tile_build {name} per slide (host clock): "
+            + ", ".join(f"{k} {v:.1f} ms" for k, v in sorted(stages.items()))
+            + f"; encoder {enc_ms:.3f} ms per patch; peak device memory "
+            f"{peak:.2f} GiB. Again with the encoder built (profiled): "
+            f"{t_warm * 1e3:.1f} ms, encoder {warm_ms:.3f} ms per patch, "
+            "device busy share "
+            + ("not measured" if busy is None else f"{busy:.3f}")
+            + f" [{card}]")
+    return total
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--ptxas", action="store_true",
@@ -1626,8 +1853,9 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         for name, group in (
                 ("serving", serving),
-                ("construction", lambda r: (construct_phase(
-                    torch, dev, card, kernels, r),)),
+                ("construction", lambda r: (
+                    construct_phase(torch, dev, card, kernels, r),
+                    tile_build_phase(torch, dev, card, kernels, r))),
                 ("training", training)):
             root = Path(tmp) / name
             root.mkdir()

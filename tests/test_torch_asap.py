@@ -21,6 +21,7 @@ from wsi_hgnn_tpu_torch.models import (ASAPGCN, ASAPPooling, MLP2Layers,
 
 from test_torch_zoo import assert_tree_close, flat, jax_graph
 from test_torch_zoo_train import _dropout_with
+import port_threads  # noqa: F401  (torch threads per test worker)
 
 F_DIM, CPU = 5, torch.device("cpu")
 

@@ -29,6 +29,7 @@ from wsi_hgnn_tpu_torch.train import (GNNTrainer, HomoGraphEvaluator,
                                       lattice_train_step)
 from wsi_hgnn_tpu_torch.train import checkpoint as tckpt
 from wsi_hgnn_tpu_torch.train import flax_msgpack
+import port_threads  # noqa: F401  (torch threads per test worker)
 
 D, RADIUS = 16, 4  # k = 3
 GNN = {"name": "HEAT4", "n_node_types": 6, "num_layers": 2, "in_dim": D,

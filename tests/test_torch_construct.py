@@ -12,11 +12,12 @@ import torch
 from PIL import Image
 
 import jax
-from flax import linen as fnn
 
+import wsi_hgnn_tpu.models.featurizers as jfeat
 from wsi_hgnn_tpu.models.featurizers import convert as jconvert
-from wsi_hgnn_tpu.models.featurizers import make_cnn_encoder as jax_encoder
+from wsi_hgnn_tpu.models.featurizers.densenet import KimiaNet as JaxKimiaNet
 from wsi_hgnn_tpu.models.featurizers.hovernet import HoVerNet as JaxHoVerNet
+from wsi_hgnn_tpu.models.featurizers.hovernet import hovernet_typing_apply
 from wsi_hgnn_tpu.pipeline import construct as jconstruct
 from wsi_hgnn_tpu.pipeline import patches as jpatches
 from wsi_hgnn_tpu.pipeline import splits as jsplits
@@ -29,6 +30,7 @@ from wsi_hgnn_tpu_torch.pipeline import construct, patches, splits
 from wsi_hgnn_tpu_torch.profiling import StageTimer
 
 from test_torch_zoo import flat
+import port_threads  # noqa: F401  (torch threads per test worker)
 
 SIZES = {"TCGA-AA-0001-01Z-00-DX1": 12, "TCGA-AA-0002-11A-00-DX1": 3,
          "TCGA-AA-0003-01Z-00-DX1": 40}
@@ -242,31 +244,10 @@ def _perturbed(variables, seed):
 
 def hovernet_variables(seed):
     """A seeded flax tree of the reference HoVer-Net (all three decoder
-    branches, no fc1): the port's seeded tp tree where it has the leaf,
-    seeded normals elsewhere, BatchNorm perturbed."""
-    shapes = jax.eval_shape(
-        JaxHoVerNet(nr_types=6, mode="fast", with_fc1=False).init,
-        jax.random.PRNGKey(0), jax.ShapeDtypeStruct((1, 256, 256, 3),
-                                                    np.float32))
-    port = flat(_seeded(HoVerNet(6, "fast"), seed))
-    rng = np.random.RandomState(seed)
-    out = {}
-    for coll, tree in shapes.items():
-        for k, s in flat(jax.tree.map(
-                lambda x: np.broadcast_to(np.float32(0), x.shape),
-                tree)).items():
-            v = port.get(f"{coll}/{k}")
-            if v is None:
-                fan_in = int(np.prod(s.shape[:-1])) or 1
-                v = (rng.randn(*s.shape) / np.sqrt(fan_in)).astype(np.float32)
-                if k.endswith(("scale", "var")):
-                    v = np.ones(s.shape, np.float32)
-            node = out.setdefault(coll, {})
-            *dirs, leaf = k.split("/")
-            for d in dirs:
-                node = node.setdefault(d, {})
-            node[leaf] = v
-    return _perturbed(out, seed)
+    branches, no fc1): the port's seeded init of that net, BatchNorm
+    perturbed."""
+    return _perturbed(_seeded(HoVerNet(6, "fast", with_fc1=False), seed),
+                      seed)
 
 
 @pytest.fixture(scope="module")
@@ -297,11 +278,13 @@ def test_reference_key_maps_match_jax(weight_files):
     from (every leaf covered, so the inverse maps are exact);
     load_torch_state_dict reads with weights_only and unwraps 'desc'."""
     kpath, hpath, kimia, hover = weight_files
-    got, want = convert.load_kimianet(kpath), jconvert.load_kimianet(kpath)
-    assert flat(got).keys() == flat(want).keys() == flat(kimia).keys()
-    for k, v in flat(want).items():
-        np.testing.assert_array_equal(flat(got)[k], v, err_msg=k)
-        np.testing.assert_array_equal(flat(kimia)[k], v, err_msg=k)
+    got, want = (flat(convert.load_kimianet(kpath)),
+                 flat(jconvert.load_kimianet(kpath)))
+    kimia = flat(kimia)
+    assert got.keys() == want.keys() == kimia.keys()
+    for k, v in want.items():
+        np.testing.assert_array_equal(got[k], v, err_msg=k)
+        np.testing.assert_array_equal(kimia[k], v, err_msg=k)
 
     sd = convert.load_torch_state_dict(hpath)
     jsd = jconvert.load_torch_state_dict(hpath)
@@ -309,10 +292,11 @@ def test_reference_key_maps_match_jax(weight_files):
     sd = {k: v for k, v in sd.items() if not k.startswith("fc1.")}
     got = flat(convert.hovernet_torch_to_flax(sd, 6))
     want = flat(jconvert.hovernet_torch_to_flax(sd, 6))
-    assert got.keys() == want.keys() == flat(hover).keys()
+    hover = flat(hover)
+    assert got.keys() == want.keys() == hover.keys()
     for k, v in want.items():
         np.testing.assert_array_equal(got[k], v, err_msg=k)
-        np.testing.assert_array_equal(flat(hover)[k], v, err_msg=k)
+        np.testing.assert_array_equal(hover[k], v, err_msg=k)
     assert jconvert.strip_dataparallel({"module.a.b": 1}) == \
         convert.strip_dataparallel({"module.a.b": 1}) == {"a.b": 1}
 
@@ -321,36 +305,45 @@ def test_kimia_encoder_from_reference_files_matches_jax(weight_files,
                                                         capsys):
     """The port's kimia encoder with inline typing, built from the two
     files (paths in the configs, as every GraphConstruction config sets
-    them), equals the JAX encoder built from the same files on 2 patches:
+    them), equals the JAX encoder built from the same files on a patch:
     features to rtol 1e-4 / atol 1e-6 in f32, node types equal. One line
-    per CNN names the file that ran."""
+    per CNN names the file that ran.
+
+    The JAX encoder is assembled from the JAX package's own parts, as its
+    make_cnn_encoder assembles them off the TPU: the converters read the
+    files (which hold every leaf, test_reference_key_maps_match_jax),
+    `_make_encode` pads and scales the chunk, and the flax KimiaNet and
+    hovernet_typing_apply run in one program, jitted with the weights as
+    arguments (closing over them would embed them as constants, which
+    takes XLA longer to compile than the forward takes to run)."""
     kpath, hpath, _, _ = weight_files
-    hcfg = {"hovernet_model_path": hpath, "mode": "fast", "batch_size": 2}
+    hcfg = {"hovernet_model_path": hpath, "mode": "fast", "batch_size": 1}
     kcfg = {"kimianet_model_path": kpath}
     cfg = {"feature_dim": 1024, "n_node_type": 6}
-    px = np.random.RandomState(0).randint(0, 256, (2, 256, 256, 3)
+    px = np.random.RandomState(0).randint(0, 256, (1, 256, 256, 3)
                                           ).astype(np.uint8)
     enc = make_cnn_encoder("kimia", cfg, hcfg, kcfg, with_typing=True,
-                           pad_batch_to=2, device="cpu")
+                           pad_batch_to=1, device="cpu")
     out = capsys.readouterr().out
     assert f"kimia weights: {kpath}" in out and f"hover weights: {hpath}" in out
     f_t, t_t = enc(px)
 
-    real_init = fnn.Module.init
+    kimia = jconvert.load_kimianet(kpath)
+    hover = jconvert.hovernet_torch_to_flax(
+        {k: v for k, v in jconvert.load_torch_state_dict(hpath).items()
+         if not k.startswith("fc1.")}, 6)
+    jkimia = JaxKimiaNet()
+    jhover = JaxHoVerNet(nr_types=6, mode="fast", with_fc1=False)
 
-    def shaped_init(self, rngs, *args, **kw):
-        # the files overwrite every leaf (test_reference_key_maps_match_jax),
-        # so the JAX encoder's init needs shapes only, not a forward pass
-        shapes = jax.eval_shape(lambda r, *a: real_init(self, r, *a, **kw),
-                                rngs, *args)
-        return jax.tree.map(lambda x: np.zeros(x.shape, x.dtype), shapes)
+    @jax.jit
+    def both(kv, hv, imgs):
+        return (jkimia.apply(kv, imgs, train=False)[0],
+                hovernet_typing_apply(jhover, hv, imgs))
 
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(fnn.Module, "init", shaped_init)
-        jenc = jax_encoder("kimia", cfg, hcfg, kcfg, with_typing=True,
-                           pad_batch_to=2)
+    jenc = jfeat._make_encode(
+        lambda a: both(kimia, hover, jfeat._norm_pixels(a)), 1, 1)
     f_j, t_j = jenc(px)
-    assert f_t.shape == (2, 1024)
+    assert f_t.shape == (1, 1024)
     np.testing.assert_allclose(f_t, np.asarray(f_j), rtol=1e-4, atol=1e-6)
     np.testing.assert_array_equal(t_t, np.asarray(t_j))
 
@@ -361,12 +354,12 @@ def test_missing_weight_files_give_the_seeded_init(tmp_path, capsys):
     and a line that says so, for both CNNs."""
     gone = str(tmp_path / "absent.pth")
     for kind, module, seed in (("kimia", KimiaNet(), 1),
-                               ("hover", HoVerNet(6, "fast"), 0)):
-        got = load_cnn_variables(kind, module, gone, seed)
-        want = load_cnn_variables(kind, module, None, seed)
-        assert flat(got).keys() == flat(want).keys()
-        for k, v in flat(want).items():
-            np.testing.assert_array_equal(flat(got)[k], v, err_msg=k)
+                               ("hover", HoVerNet.typing(6, "fast"), 0)):
+        got = flat(load_cnn_variables(kind, module, gone, seed))
+        want = flat(load_cnn_variables(kind, module, None, seed))
+        assert got.keys() == want.keys()
+        for k, v in want.items():
+            np.testing.assert_array_equal(got[k], v, err_msg=k)
         log = capsys.readouterr().out
         assert f"{kind} weights: seeded init (seed {seed}), {gone} not found" \
             in log
@@ -377,8 +370,9 @@ def test_missing_weight_files_give_the_seeded_init(tmp_path, capsys):
 def test_get_graph_entry_point(tmp_path, monkeypatch):
     """`python -m wsi_hgnn_tpu_torch.get_graph` constructs on the card by
     default and raises without one; with `-device cpu` it constructs the
-    slides and writes the splits (--yes skips the prompt); an encoder the
-    port lacks raises before any slide is skipped."""
+    slides and writes the splits (--yes skips the prompt); an encoder
+    neither package builds ('efficientnet-b7') raises before any slide is
+    skipped."""
     patch_path = write_slides(tmp_path)
     cfg_text = "graph_constructor:\n" + "".join(
         f"  {k}: {'' if v is None else v}\n"
@@ -397,7 +391,8 @@ def test_get_graph_entry_point(tmp_path, monkeypatch):
     assert len(list((out / "homogeneous").glob("*.npz"))) == 3
     assert len(list((out / "node_types").glob("*.npy"))) == 3
     assert len(list((out / "list_f1").glob("*.txt"))) == 6
-    (tmp_path / "h.yml").write_text(cfg_text.replace("random", "hover"))
-    with pytest.raises(NotImplementedError, match="item 4"):
+    (tmp_path / "h.yml").write_text(cfg_text.replace("random",
+                                                     "efficientnet-b7"))
+    with pytest.raises(NotImplementedError, match="efficientnet-b7"):
         get_graph.main(["-config", str(tmp_path / "h.yml"), "--construct",
                         "-device", "cpu"])

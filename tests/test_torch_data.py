@@ -23,6 +23,7 @@ from wsi_hgnn_tpu_torch import config as tconfig
 from wsi_hgnn_tpu_torch.data import datasets as tds
 from wsi_hgnn_tpu_torch.data import lattice_loader as tll
 from wsi_hgnn_tpu_torch.data.loader import prefetched_batches
+import port_threads  # noqa: F401  (torch threads per test worker)
 
 # the packages' train/__init__ export a function named `metrics`
 jmetrics = importlib.import_module("wsi_hgnn_tpu.train.metrics")

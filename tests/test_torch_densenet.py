@@ -14,6 +14,7 @@ from wsi_hgnn_tpu.ops import pallas_densenet as jpd
 from wsi_hgnn_tpu_torch import convert
 from wsi_hgnn_tpu_torch.kernels import densenet as tdn
 from wsi_hgnn_tpu_torch.models.featurizers import densenet as tfd
+import port_threads  # noqa: F401  (torch threads per test worker)
 
 
 def _layer_inputs(c_cur, c_end=256, b=2, h=16, seed=0):

@@ -29,6 +29,7 @@ from wsi_hgnn_tpu_torch.serve import SlidePredictor
 from wsi_hgnn_tpu_torch.train import (GNNTrainer, HomoGraphEvaluator,
                                       lattice_train_step, typed_train_step)
 from wsi_hgnn_tpu_torch.utils import set_cuda_numerics
+import port_threads  # noqa: F401  (torch threads per test worker)
 
 pytestmark = pytest.mark.gpu
 
@@ -561,3 +562,96 @@ def test_server_round_trip_on_card(cuda):
     assert kknn.knn_l2_fused.launches - before == 4 * stats["batches"]
     for s, r in zip(slides, results):
         np.testing.assert_allclose(r["probs"], on_cpu.predict(*s), atol=1e-4)
+
+
+def _seeded_tree(module, seed):
+    return convert.to_flax_variables(convert.init_flax_like_(module, seed))
+
+
+def _rel_l2(got, want):
+    return float(((got - want).norm(dim=1) / want.norm(dim=1)).max())
+
+
+def test_hover_encoder_chunk_on_card_matches_cpu(cuda):
+    """A 'hover' encoder chunk (HoVer-Net encoder, tp typing and fc1, here
+    64 wide) in f32 on the card against the same weights on the CPU:
+    features to 1e-4 relative L2, node types equal; the bf16 encoder the
+    card runs in production to 0.1 (as served features are held)."""
+    from wsi_hgnn_tpu_torch.models.featurizers import (HoVerNet,
+                                                       hovernet_full_apply,
+                                                       make_cnn_encoder)
+
+    tree = _seeded_tree(HoVerNet(6, "fast", feat_dim=64), 3)
+    px = np.random.RandomState(4).randint(0, 256, (4, 256, 256, 3)
+                                          ).astype(np.uint8)
+    x = torch.from_numpy(px).float() / 255.0
+    model = convert.load_flax_variables(HoVerNet(6, "fast", feat_dim=64),
+                                        tree).eval()
+    with torch.inference_mode():
+        f_cpu, t_cpu = hovernet_full_apply(model, x)
+        f_card, t_card = hovernet_full_apply(model.to(cuda), x.to(cuda))
+    assert _rel_l2(f_card.cpu(), f_cpu) <= 1e-4
+    assert torch.equal(t_card.cpu(), t_cpu)
+    enc = make_cnn_encoder("hover", {"feature_dim": 64, "n_node_type": 6},
+                           {"mode": "fast"}, {}, pad_batch_to=4, device=cuda,
+                           hover_variables=tree)
+    f_bf16, _ = enc(px)
+    assert _rel_l2(torch.from_numpy(f_bf16), f_cpu) <= 0.1
+
+
+def test_efficientnet_chunk_on_card_matches_cpu(cuda):
+    """An EfficientNet-B4 chunk in f32 on the card against the CPU to 1e-4
+    relative L2; the production 'efficientnet-b4' encoder (bf16, typing
+    inline) to 0.1 with the CPU's node types from the same typing net."""
+    from wsi_hgnn_tpu_torch.models.featurizers import (EfficientNet,
+                                                       HoVerNet,
+                                                       efficientnet_apply,
+                                                       make_cnn_encoder)
+
+    tree = _seeded_tree(EfficientNet.from_name("efficientnet-b4", 1024), 5)
+    typing = _seeded_tree(HoVerNet.typing(6, "fast"), 6)
+    px = np.random.RandomState(7).randint(0, 256, (8, 256, 256, 3)
+                                          ).astype(np.uint8)
+    x = torch.from_numpy(px).float() / 255.0
+    model = convert.load_flax_variables(
+        EfficientNet.from_name("efficientnet-b4", 1024), tree).eval()
+    with torch.inference_mode():
+        f_cpu = efficientnet_apply(model, x)
+        f_card = efficientnet_apply(model.to(cuda), x.to(cuda)).cpu()
+    assert _rel_l2(f_card, f_cpu) <= 1e-4
+    enc = make_cnn_encoder("efficientnet-b4",
+                           {"feature_dim": 1024, "n_node_type": 6},
+                           {"mode": "fast"}, {}, with_typing=True,
+                           pad_batch_to=8, device=cuda,
+                           efficientnet_variables=tree,
+                           hover_variables=typing)
+    f_bf16, types = enc(px)
+    assert _rel_l2(torch.from_numpy(f_bf16), f_cpu) <= 0.1
+    assert types.shape == (8,) and types.dtype == np.int32
+    assert ((types >= 0) & (types < 6)).all()
+
+
+def test_native_packer_builds_and_matches_numpy_on_card_machine(cuda):
+    """The native packer built by this machine's g++: batches and edge
+    sorts equal the numpy path bit for bit, and the batch moves to the
+    card intact."""
+    from wsi_hgnn_tpu_torch import native
+
+    assert native.build().exists()
+    rng = np.random.RandomState(0)
+    graphs = [from_arrays(rng.randn(n, 16).astype(np.float32),
+                          rng.randint(0, n, e), rng.randint(0, n, e),
+                          node_type=rng.randint(0, 6, n),
+                          esign=rng.randint(0, 2, e), sim=rng.randn(e),
+                          n_node_types=6, node_capacity=256,
+                          edge_capacity=1024)
+              for n, e in ((100, 700), (250, 1000), (7, 20))]
+    got = sort_graph_edges(batch_graphs(graphs))
+    want = sort_graph_edges(batch_graphs(graphs, native=False), native=False)
+    for f in ("feat", "node_type", "node_graph", "node_mask", "src", "dst",
+              "esign", "sim", "edge_mask"):
+        a, b = np.asarray(getattr(got, f)), np.asarray(getattr(want, f))
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b, err_msg=f)
+    np.testing.assert_array_equal(
+        torch.from_numpy(got.feat).to(cuda).cpu().numpy(), got.feat)

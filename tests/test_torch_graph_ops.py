@@ -17,6 +17,7 @@ from wsi_hgnn_tpu.graph.batch import sort_graph_edges as jax_sort
 from wsi_hgnn_tpu_torch import graph as tgraph
 from wsi_hgnn_tpu_torch.graph import ops as tops
 from wsi_hgnn_tpu_torch.graph import transforms as ttr
+import port_threads  # noqa: F401  (torch threads per test worker)
 
 T, D, CPU = 3, 5, torch.device("cpu")
 FIELDS = ("feat", "node_type", "node_graph", "node_mask", "src", "dst",

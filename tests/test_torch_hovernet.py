@@ -11,6 +11,7 @@ import jax.numpy as jnp
 from wsi_hgnn_tpu.models.featurizers import hovernet as jhv
 from wsi_hgnn_tpu_torch import convert
 from wsi_hgnn_tpu_torch.models.featurizers import hovernet as thv
+import port_threads  # noqa: F401  (torch threads per test worker)
 
 
 @pytest.fixture(scope="module")
@@ -41,13 +42,18 @@ def test_hovernet_typing_matches_flax(hover):
     summed in another order), node types exactly equal, and the H/W
     transpose is load-bearing."""
     variables, x, tp_ref, types_ref = hover
-    model = convert.load_flax_variables(thv.HoVerNet(6, "fast"), variables)
+    model = convert.load_flax_variables(thv.HoVerNet.typing(6, "fast"),
+                                        variables)
     model.eval()
     xt = torch.from_numpy(x)
+
+    def tp_of(imgs):
+        return model.decode_branch("tp", model.encode(imgs))
+
     with torch.no_grad():
-        tp = model(thv._constructor_orientation(xt).permute(0, 3, 1, 2))
+        tp = tp_of(thv._constructor_orientation(xt).permute(0, 3, 1, 2))
         types = thv.hovernet_typing_apply(model, xt)
-        tp_plain = model(xt.permute(0, 3, 1, 2))
+        tp_plain = tp_of(xt.permute(0, 3, 1, 2))
     assert not torch.allclose(tp_plain, tp, atol=1e-3)
     tp = tp.permute(0, 2, 3, 1).numpy()
     assert tp.shape == (2, 164, 164, 6)

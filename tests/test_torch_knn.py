@@ -15,6 +15,7 @@ from wsi_hgnn_tpu_torch.kernels.knn import knn_l2_fused, knn_l2_reference
 from wsi_hgnn_tpu_torch.models.lattice import build_lattice_device
 from wsi_hgnn_tpu_torch.ops import knn as tknn
 from wsi_hgnn_tpu_torch.ops import pearson as tpearson
+import port_threads  # noqa: F401  (torch threads per test worker)
 
 
 def _features(kind, n, d, seed):

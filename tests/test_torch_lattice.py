@@ -18,6 +18,7 @@ from wsi_hgnn_tpu_torch.config import parse_lattice_twin
 from wsi_hgnn_tpu_torch.graph import ops as tops
 from wsi_hgnn_tpu_torch.graph.typed_graph import bucket_size
 from wsi_hgnn_tpu_torch.models import lattice as tlat
+import port_threads  # noqa: F401  (torch threads per test worker)
 
 B, N, D, T, R = 2, 64, 16, 6, 5
 CLASSES = {"heat2": (jlat.HEATNet2Lattice, tlat.HEATNet2Lattice),

@@ -25,6 +25,7 @@ from wsi_hgnn_tpu.serve import SlidePredictor as JaxPredictor
 from wsi_hgnn_tpu.train.checkpoint import CheckpointManager
 from wsi_hgnn_tpu_torch.serve import SlidePredictor
 from wsi_hgnn_tpu_torch.utils import resolve_device
+import port_threads  # noqa: F401  (torch threads per test worker)
 
 ROOT = Path(__file__).resolve().parent.parent
 RADIUS = 4
@@ -152,13 +153,17 @@ def test_chip_smoke_fails_without_a_card(tmp_path):
 
 
 def test_port_imports_no_jax():
-    code = ("import sys, wsi_hgnn_tpu_torch.serve, wsi_hgnn_tpu_torch.convert,"
-            " wsi_hgnn_tpu_torch.models.featurizers, wsi_hgnn_tpu_torch.kernels,"
-            " wsi_hgnn_tpu_torch.config, wsi_hgnn_tpu_torch.data,"
-            " wsi_hgnn_tpu_torch.train, wsi_hgnn_tpu_torch.main,"
-            " wsi_hgnn_tpu_torch.profiling, wsi_hgnn_tpu_torch.pipeline,"
-            " wsi_hgnn_tpu_torch.get_graph, wsi_hgnn_tpu_torch.tools.serve,"
-            " wsi_hgnn_tpu_torch.models.featurizers.convert;"
+    """Every module of the port (found by walking the package, so new
+    ones are covered) imports without pulling in JAX, Flax, optax, the
+    JAX package, PyYAML or msgpack."""
+    code = ("import importlib, pkgutil, sys, wsi_hgnn_tpu_torch as p;"
+            " names = [m.name for m in pkgutil.walk_packages(p.__path__,"
+            " 'wsi_hgnn_tpu_torch.')];"
+            " [importlib.import_module(n) for n in names];"
+            " assert {'wsi_hgnn_tpu_torch.pipeline.tiler',"
+            " 'wsi_hgnn_tpu_torch.get_patches', 'wsi_hgnn_tpu_torch.native',"
+            " 'wsi_hgnn_tpu_torch.models.featurizers.efficientnet',"
+            " 'wsi_hgnn_tpu_torch.models.featurizers.effnetv2'} <= set(names);"
             " bad = [m for m in sys.modules if m.split('.')[0] in"
             " ('jax', 'flax', 'optax', 'wsi_hgnn_tpu', 'yaml', 'msgpack')];"
             " assert not bad, bad")

@@ -28,6 +28,7 @@ from wsi_hgnn_tpu.serve import SlidePredictor as JaxPredictor
 from wsi_hgnn_tpu.train.checkpoint import CheckpointManager
 from wsi_hgnn_tpu_torch.config import loads_config
 from wsi_hgnn_tpu_torch.serve import BatchingServer, SlidePredictor, _Request
+import port_threads  # noqa: F401  (torch threads per test worker)
 
 ROOT = Path(__file__).resolve().parent.parent
 RADIUS, IN_DIM, WAIT = 4, 16, 60

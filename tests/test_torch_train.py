@@ -4,6 +4,8 @@ train/trainer.py::lattice_train_step) against the JAX package, on the
 CPU: the augmentation fed JAX's masks, gradients in the shifted-softmax
 branch, and lockstep training trajectories for every optimizer branch and
 both losses."""
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -19,6 +21,7 @@ from wsi_hgnn_tpu_torch.config import parse_loss, parse_optimizer
 from wsi_hgnn_tpu_torch.graph import ops as tops
 from wsi_hgnn_tpu_torch.models import lattice as tlat
 from wsi_hgnn_tpu_torch.train.trainer import lattice_train_step
+import port_threads  # noqa: F401  (torch threads per test worker)
 
 B, N, D, T, R = 2, 48, 16, 6, 4
 CLASSES = {"heat2": (jlat.HEATNet2Lattice, tlat.HEATNet2Lattice),
@@ -42,15 +45,26 @@ def _graphs(seed):
     return g_j, g_t
 
 
+@functools.lru_cache(maxsize=None)
+def _jax_init(which, seed, n_layers, presence):
+    """The flax model and its initial params, made once per model: each
+    lockstep case trains its own torch copy of them."""
+    g_j, _ = _graphs(seed)
+    jm = CLASSES[which][0](**_widths(n_layers, presence))
+    return jm, jax.jit(jm.init)(jax.random.PRNGKey(seed), g_j)["params"]
+
+
+def _widths(n_layers, presence):
+    return dict(in_dim=D, hidden_dim=16, out_dim=2, n_layers=n_layers,
+                n_heads=2, n_node_types=T, dropout=0.0, presence=presence)
+
+
 def _pair(which, seed=0, n_layers=2, presence="batch"):
     g_j, g_t = _graphs(seed)
-    kw = dict(in_dim=D, hidden_dim=16, out_dim=2, n_layers=n_layers,
-              n_heads=2, n_node_types=T, dropout=0.0, presence=presence)
-    jcls, tcls = CLASSES[which]
-    jm = jcls(**kw)
-    params = jax.jit(jm.init)(jax.random.PRNGKey(seed), g_j)["params"]
+    jm, params = _jax_init(which, seed, n_layers, presence)
     tm = convert.load_flax_variables(
-        tcls(**kw), {"params": jax.tree.map(np.asarray, params)})
+        CLASSES[which][1](**_widths(n_layers, presence)),
+        {"params": jax.tree.map(np.asarray, params)})
     return jm, tm, params, g_j, g_t
 
 

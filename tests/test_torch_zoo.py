@@ -23,6 +23,7 @@ from wsi_hgnn_tpu_torch.config import parse_lattice_twin
 from wsi_hgnn_tpu_torch.graph import (batch_graphs, build_batch_device,
                                       from_arrays, sort_graph_edges,
                                       to_homogeneous)
+import port_threads  # noqa: F401  (torch threads per test worker)
 
 ROOT = Path(__file__).resolve().parent.parent
 D, T, CPU = 8, 3, torch.device("cpu")

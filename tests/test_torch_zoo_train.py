@@ -39,6 +39,7 @@ from wsi_hgnn_tpu_torch.train import (GNNTrainer, HomoGraphEvaluator,
 from wsi_hgnn_tpu_torch.train.trainer import select_dataset
 
 from test_torch_zoo import ZOO, flat, graph_pair
+import port_threads  # noqa: F401  (torch threads per test worker)
 
 D, T, RADIUS, CPU = 8, 3, 4, torch.device("cpu")
 

@@ -169,10 +169,11 @@ def _flax_fans(shape) -> Tuple[int, int]:
     return shape[-2] * receptive, shape[-1] * receptive
 
 
-def _trunc_normal(shape, std: float, gen: torch.Generator) -> torch.Tensor:
-    w = torch.empty(shape)
+def trunc_normal(shape, std: float, gen: torch.Generator) -> torch.Tensor:
+    """flax's truncated normal, drawn on `gen`'s device."""
+    w = torch.empty(shape, device=gen.device)
     nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
-    return w * (std / _TRUNC_STD)
+    return w.mul_(std / _TRUNC_STD)
 
 
 @torch.no_grad()
@@ -193,11 +194,11 @@ def init_flax_like_(module: nn.Module, seed: int) -> nn.Module:
         fan_in, fan_out = _flax_fans(_to_flax_layout(
             owner, leaf, np.empty(t.shape, np.uint8)).shape)
         if name == "kernel":
-            t.copy_(_trunc_normal(t.shape, math.sqrt(1.0 / fan_in), gen))
+            t.copy_(trunc_normal(t.shape, math.sqrt(1.0 / fan_in), gen))
         elif name in ("relation_att", "relation_msg"):
             limit = math.sqrt(6.0 / (fan_in + fan_out))
             t.copy_((torch.rand(t.shape, generator=gen) * 2.0 - 1.0) * limit)
         else:  # attn_l, attn_r
-            t.copy_(_trunc_normal(t.shape, math.sqrt(2.0 / (fan_in + fan_out)),
+            t.copy_(trunc_normal(t.shape, math.sqrt(2.0 / (fan_in + fan_out)),
                                   gen))
     return module

@@ -1,7 +1,9 @@
 """Host-side graph batching and edge sorting (counterpart of
 wsi_hgnn_tpu/graph/batch.py): `dgl.batch` as concatenation with node-index
 offsets plus the `node_graph` segment vector, re-padded to a bucketed
-capacity. numpy only.
+capacity. The native C++ packer and counting sort (`native/`) do the work
+by default, as in the JAX package; `native=False` runs the plain numpy
+version, which gives the same arrays bit for bit.
 """
 from __future__ import annotations
 
@@ -9,14 +11,16 @@ from typing import Optional, Sequence
 
 import numpy as np
 
+from ..native import pack_batch_native, sort_edges_native
 from .typed_graph import TypedGraph, bucket_size
 
 
-def sort_graph_edges(g: TypedGraph) -> TypedGraph:
+def sort_graph_edges(g: TypedGraph, native: bool = True) -> TypedGraph:
     """Edges sorted by the segment key dst*(ET*T) + esign*T + src_type (the
     grouping of ops.edge_softmax_by_dst_rel), padding edges moved to the
     end with their dst rewritten to the last node slot, so dst stays
-    non-decreasing. A stable argsort, the JAX package's own fallback."""
+    non-decreasing. The native counting sort, or with native=False a
+    stable numpy argsort (the same permutation)."""
     src = np.asarray(g.src)
     dst = np.asarray(g.dst)
     esign = np.asarray(g.esign)
@@ -28,8 +32,12 @@ def sort_graph_edges(g: TypedGraph) -> TypedGraph:
     n_combo = et * t
     cap_n = g.num_nodes
     key = dst.astype(np.int64) * n_combo + esign * t + node_type[src]
-    key = np.where(emask, key, np.int64(cap_n) * n_combo)
-    perm = np.argsort(key, kind="stable")
+    pad_key = np.int64(cap_n) * n_combo
+    key = np.where(emask, key, pad_key)
+    if native:
+        perm = sort_edges_native(key, int(pad_key) + 1)
+    else:
+        perm = np.argsort(key, kind="stable")
 
     dst = np.where(emask, dst, cap_n - 1)
     ew = g.edge_weight
@@ -43,11 +51,11 @@ def sort_graph_edges(g: TypedGraph) -> TypedGraph:
 def batch_graphs(graphs: Sequence[TypedGraph], *,
                  node_capacity: Optional[int] = None,
                  edge_capacity: Optional[int] = None,
-                 bucket_base: int = 256) -> TypedGraph:
+                 bucket_base: int = 256, native: bool = True) -> TypedGraph:
     """Concatenate padded graphs into one batched TypedGraph: each member's
     padding is dropped and the batch re-padded to a bucketed capacity.
     A member's edge_weight survives batching (ones where a member has
-    none)."""
+    none). native=False packs with numpy instead of the C++ packer."""
     if not graphs:
         raise ValueError("batch_graphs needs at least one graph")
     t = graphs[0].n_node_types
@@ -56,27 +64,24 @@ def batch_graphs(graphs: Sequence[TypedGraph], *,
         if g.n_node_types != t or g.n_edge_types != et:
             raise ValueError("all graphs in a batch must share type metadata")
 
-    feats, ntys, srcs, dsts, esigns, sims, ews, ngraph = ([] for _ in range(8))
+    feats, ntys, srcs, dsts, esigns, sims, ews = ([] for _ in range(7))
     any_ew = False
-    offset = 0
-    for i, g in enumerate(graphs):
+    for g in graphs:
         n = int(np.asarray(g.node_mask).sum())
         e = int(np.asarray(g.edge_mask).sum())
         feats.append(np.asarray(g.feat)[:n])
         ntys.append(np.asarray(g.node_type)[:n])
-        srcs.append(np.asarray(g.src)[:e] + offset)
-        dsts.append(np.asarray(g.dst)[:e] + offset)
+        srcs.append(np.asarray(g.src)[:e])
+        dsts.append(np.asarray(g.dst)[:e])
         esigns.append(np.asarray(g.esign)[:e])
         sims.append(np.asarray(g.sim)[:e])
-        ngraph.append(np.full(n, i, dtype=np.int32))
         if g.edge_weight is not None:
             any_ew = True
             ews.append(np.asarray(g.edge_weight)[:e])
         else:
             ews.append(np.ones(e, np.float32))
-        offset += n
 
-    n_total = offset
+    n_total = sum(len(f) for f in feats)
     e_total = sum(len(s) for s in srcs)
     cap_n = node_capacity or bucket_size(n_total, base=bucket_base)
     cap_e = edge_capacity or bucket_size(e_total, base=bucket_base)
@@ -89,16 +94,24 @@ def batch_graphs(graphs: Sequence[TypedGraph], *,
         out[: x.shape[0]] = x
         return out
 
+    if native:
+        packed = pack_batch_native(feats, ntys, srcs, dsts, esigns, sims,
+                                   cap_n, cap_e)
+    else:
+        offsets = np.cumsum([0] + [len(f) for f in feats[:-1]])
+        packed = (
+            pad(feats, cap_n, np.float32), pad(ntys, cap_n, np.int32),
+            # padding nodes point at graph 0 and are masked out of every op
+            pad([np.full(len(f), i, np.int32) for i, f in enumerate(feats)],
+                cap_n, np.int32),
+            np.arange(cap_n) < n_total,
+            pad([s + o for s, o in zip(srcs, offsets)], cap_e, np.int32),
+            pad([d + o for d, o in zip(dsts, offsets)], cap_e, np.int32),
+            pad(esigns, cap_e, np.int32), pad(sims, cap_e, np.float32),
+            np.arange(cap_e) < e_total)
+    feat, ntype, ngraph, nmask, src, dst, esign, sim, emask = packed
     return TypedGraph(
-        feat=pad(feats, cap_n, np.float32),
-        node_type=pad(ntys, cap_n, np.int32),
-        # padding nodes point at graph 0 and are masked out of every op
-        node_graph=pad(ngraph, cap_n, np.int32),
-        node_mask=np.arange(cap_n) < n_total,
-        src=pad(srcs, cap_e, np.int32),
-        dst=pad(dsts, cap_e, np.int32),
-        esign=pad(esigns, cap_e, np.int32),
-        sim=pad(sims, cap_e, np.float32),
-        edge_mask=np.arange(cap_e) < e_total,
+        feat=feat, node_type=ntype, node_graph=ngraph, node_mask=nmask,
+        src=src, dst=dst, esign=esign, sim=sim, edge_mask=emask,
         edge_weight=pad(ews, cap_e, np.float32) if any_ew else None,
         n_graphs=len(graphs), n_node_types=t, n_edge_types=et)

@@ -1,14 +1,17 @@
-"""CNN featurizers and the two-CNN patch encoder (counterpart of
-wsi_hgnn_tpu/models/featurizers/__init__.py): KimiaNet features and
-HoVer-Net nucleus typing over one patch stream, as the reference graph
-constructor runs them.
+"""CNN featurizers and the patch encoders (counterpart of
+wsi_hgnn_tpu/models/featurizers/__init__.py), as the reference graph
+constructor runs them over one patch stream: 'kimia' (KimiaNet features),
+'efficientnet-b4' (EfficientNet-B4 features), each with HoVer-Net nucleus
+typing inline, and 'hover' (HoVer-Net's fc1 features and its own types).
 
 Weights, per CNN: flax-layout variables when the caller passes them;
 else the reference's torch checkpoint named by `kimianet_model_path` /
-`hovernet_model_path` when that file exists (`convert.py` maps its keys,
-strict=False over the seeded init); else the seeded init with flax's
-distributions, as the JAX package falls back to its random init. One
-line per CNN says which weights ran.
+`hovernet_model_path` / `efficientnet_model_path` when that file exists
+(`convert.py` maps its keys, strict=False over the seeded init); else the
+seeded init with flax's distributions, as the JAX package falls back to
+its random init. One line per CNN says which weights ran. HoVer-Net's fc1
+kernel (4.3 GB in f32 at 1024 features) is seeded on the encoder's own
+device when no file holds it, never on the host.
 """
 from __future__ import annotations
 
@@ -21,11 +24,16 @@ import torch
 from ...utils import resolve_device, set_cuda_numerics, to_torch
 from . import convert
 from .densenet import DenseNet121, KimiaNet, fuse_kimianet, kimianet_fused_apply
-from .hovernet import HoVerNet, hovernet_typing_apply, node_types_on_device
+from .efficientnet import EfficientNet, efficientnet_apply
+from .effnetv2 import EffNetV2
+from .hovernet import (HoVerNet, hovernet_full_apply, hovernet_typing_apply,
+                       node_types_from_tp, node_types_on_device)
 
-__all__ = ["DenseNet121", "KimiaNet", "HoVerNet", "convert", "fuse_kimianet",
-           "kimianet_fused_apply", "hovernet_typing_apply",
-           "node_types_on_device", "make_cnn_encoder"]
+__all__ = ["DenseNet121", "KimiaNet", "EfficientNet", "EffNetV2", "HoVerNet",
+           "convert", "fuse_kimianet", "kimianet_fused_apply",
+           "efficientnet_apply", "hovernet_typing_apply",
+           "hovernet_full_apply", "node_types_from_tp",
+           "node_types_on_device", "make_cnn_encoder", "make_hovernet"]
 
 
 def _norm_pixels(imgs: torch.Tensor) -> torch.Tensor:
@@ -74,58 +82,119 @@ def _seeded(module: torch.nn.Module, seed: int) -> Dict:
     return bridge.to_flax_variables(bridge.init_flax_like_(module, seed))
 
 
-# HoVer-Net branches the typing module does not run: the reference
-# checkpoint's np/hv decoders, and fc1 where a DataParallel checkpoint
-# carries it under module.fc1
-_NOT_TYPING = ("decoder_np", "decoder_hv", "fc1")
-
-
 def load_cnn_variables(kind: str, module: torch.nn.Module, path,
                        seed: int, nr_types: int = 6) -> Dict:
-    """The variables of `module` ('kimia' or 'hover'): its seeded init,
-    overlaid with the torch checkpoint at `path` when that file exists
-    (the JAX package's rule). Prints which weights ran."""
-    variables = _seeded(module, seed)
+    """The variables of `module` ('kimia', 'hover' or 'efficientnet'): the
+    torch checkpoint at `path` when that file exists (the JAX package's
+    rule) over the seeded init, whose draws are skipped when the file
+    holds every leaf. Prints which weights ran.
+
+    For HoVer-Net the tree holds the decoders `module` has, and fc1 only
+    where the file has it and `module` takes it: the init is drawn
+    without fc1 (the same draws for every other leaf), and
+    `load_hovernet` seeds fc1 on its device."""
+    from ... import convert as bridge
+
+    module_nofc1 = module
+    if kind == "hover" and module.fc1 is not None:
+        module_nofc1 = HoVerNet(nr_types, module.mode, with_fc1=False,
+                                branches=module.branches)
+    converted, fc1 = {}, None
     if path and os.path.exists(str(path)):
-        if kind == "kimia":
+        if kind == "hover":
+            converted, fc1 = _read_hovernet(module, path, nr_types)
+        elif kind == "kimia":
             converted = convert.load_kimianet(path)
         else:
-            # the typing module has no fc1 to take the reference net's
-            # (the JAX package drops it before converting, too)
-            sd = {k: v for k, v in convert.load_torch_state_dict(path).items()
-                  if not k.startswith("fc1.")}
-            converted = convert.hovernet_torch_to_flax(sd, nr_types)
-            converted = {col: {k: v for k, v in tree.items()
-                               if k not in _NOT_TYPING}
-                         for col, tree in converted.items()}
-        variables = convert.merge_into(variables, converted)
+            converted = convert.efficientnet_torch_to_flax(
+                convert.load_torch_state_dict(path),
+                num_classes=module.fc.out_features)
         print(f"{kind} weights: {path}", flush=True)
     else:
         why = f"{path} not found" if path else "no weights path set"
         print(f"{kind} weights: seeded init (seed {seed}), {why}", flush=True)
+    init = bridge.to_flax_variables(module_nofc1)
+    if not _leaf_paths(init) <= _leaf_paths(converted):
+        init = _seeded(module_nofc1, seed)
+    variables = convert.merge_into(init, converted)
+    if fc1 is not None:
+        variables["params"]["fc1"] = fc1
     return variables
+
+
+def _leaf_paths(tree: Dict, prefix: str = "") -> set:
+    out = set()
+    for k, v in tree.items():
+        out |= (_leaf_paths(v, f"{prefix}{k}/") if isinstance(v, dict)
+                else {prefix + k})
+    return out
+
+
+def _read_hovernet(module: HoVerNet, path, nr_types: int):
+    """A reference HoVer-Net file as (flax tree of the modules `module`
+    has, fc1 or None). fc1 is taken only by a module with fc1 (a typing
+    net never converts the 4 GB kernel; the JAX package drops it before
+    converting, too) and must have its width."""
+    sd = convert.strip_dataparallel(convert.load_torch_state_dict(path))
+    if module.fc1 is None:
+        sd = {k: v for k, v in sd.items() if not k.startswith("fc1.")}
+    converted = convert.hovernet_torch_to_flax(sd, nr_types)
+    fc1 = converted["params"].pop("fc1", None)
+    if fc1 is not None and fc1["kernel"].shape != tuple(module.fc1.kernel.shape):
+        raise ValueError(f"fc1 kernel {fc1['kernel'].shape} in {path}, the "
+                         f"module takes {tuple(module.fc1.kernel.shape)}")
+    keep = {name for name, _ in module.named_children()}
+    return {col: {k: v for k, v in tree.items() if k in keep}
+            for col, tree in converted.items()}, fc1
+
+
+def load_hovernet(model: HoVerNet, variables: Dict, seed: int) -> HoVerNet:
+    """Copy a flax tree into `model`; fc1 from the tree when it holds one,
+    else seeded on fc1's device (`ChunkedDense.seed_`)."""
+    from ... import convert as bridge
+
+    for name, child in model.named_children():
+        if name == "fc1" and "fc1" not in variables["params"]:
+            child.seed_(seed)
+            continue
+        bridge.load_flax_variables(
+            child, {col: tree.get(name, {}) for col, tree in variables.items()})
+    return model
+
+
+def make_hovernet(hovernet_config: Dict, nr_types: int, device: torch.device,
+                  variables: Optional[Dict] = None, seed: int = 0,
+                  feat_dim: Optional[int] = None) -> HoVerNet:
+    """HoVer-Net in eval mode and f32, built on `device`: the typing net
+    (encoder + tp) when feat_dim is None, else the full net with fc1 at
+    feat_dim. Weights as the module docstring says."""
+    mode = hovernet_config.get("mode", "fast")
+    with torch.device(device):
+        model = (HoVerNet.typing(nr_types, mode) if feat_dim is None
+                 else HoVerNet(nr_types, mode, feat_dim=feat_dim))
+    if variables is None:
+        variables = load_cnn_variables(
+            "hover", model, hovernet_config.get("hovernet_model_path"), seed,
+            nr_types)
+    return load_hovernet(model, variables, seed).eval()
+
+
+def _card_dtype(model: torch.nn.Module, device: torch.device):
+    """(model, input dtype): bf16 weights, channels-last, on the card (the
+    TPU branch's choice); f32 on the CPU."""
+    if device.type != "cuda":
+        return model, torch.float32
+    return (model.to(dtype=torch.bfloat16, memory_format=torch.channels_last),
+            torch.bfloat16)
 
 
 def make_hover_typing_device(hovernet_config: Dict, nr_types: int,
                              device: torch.device, variables: Optional[Dict],
                              seed: int):
-    """imgs [B, 256, 256, 3] f32 on the device -> node types [B] int32.
-    bf16 weights and inputs on the card (the TPU branch's choice), f32 on
-    the CPU."""
-    from ... import convert as bridge
-
-    model = HoVerNet(nr_types=nr_types,
-                     mode=hovernet_config.get("mode", "fast"))
-    if variables is None:
-        variables = load_cnn_variables(
-            "hover", model, hovernet_config.get("hovernet_model_path"), seed,
-            nr_types)
-    bridge.load_flax_variables(model, variables)
-    dtype = torch.float32
-    model = model.eval().to(device)
-    if device.type == "cuda":
-        dtype = torch.bfloat16
-        model = model.to(dtype=dtype, memory_format=torch.channels_last)
+    """imgs [B, 256, 256, 3] f32 on the device -> node types [B] int32."""
+    model, dtype = _card_dtype(
+        make_hovernet(hovernet_config, nr_types, device, variables, seed),
+        device)
 
     def typing_dev(imgs):
         return hovernet_typing_apply(model, imgs.to(dtype), nr_types)
@@ -137,36 +206,70 @@ def make_cnn_encoder(name: str, config: Dict, hovernet_config: Dict,
                      kimianet_config: Dict, with_typing: bool = False,
                      pad_batch_to: Optional[int] = None, device=None,
                      kimia_variables: Optional[Dict] = None,
-                     hover_variables: Optional[Dict] = None, seed: int = 0):
-    """`(patches [B, 256, 256, 3] uint8 or f32) -> (features [B, 1024] f32,
+                     hover_variables: Optional[Dict] = None,
+                     efficientnet_variables: Optional[Dict] = None,
+                     seed: int = 0):
+    """`(patches [B, 256, 256, 3] uint8 or f32) -> (features [B, D] f32,
     node_types [B] int32 | None)`.
 
     'kimia' runs the fused KimiaNet (the hand-written dense-layer and
-    transition kernels; bf16 storage on the card, f32 on the CPU).
-    with_typing also runs HoVer-Net typing on the same uploaded chunk.
-    Weights come as flax-layout numpy variables, else from the configs'
-    weights paths where the files exist, else from `seed` with flax's
-    init distributions (module docstring). The encoder
-    carries its device functions as `encode.stages` ('kimianet', and
-    'hovernet' with typing), for per-stage timing."""
+    transition kernels), 'efficientnet-b4' EfficientNet-B4 with its
+    feature_dim-way fc; with_typing adds HoVer-Net typing on the same
+    uploaded chunk. 'hover' runs HoVer-Net once for both: fc1 features
+    (feature_dim wide) and types. bf16 storage on the card, f32 on the
+    CPU. Any other name raises NotImplementedError (the JAX package builds
+    no 'efficientnet-b7' either). Weights as the module docstring says.
+    The encoder carries its device functions as `encode.stages`
+    ('kimianet' / 'efficientnet' / 'hovernet'), for per-stage timing."""
     dev = resolve_device(device)
     if dev.type == "cuda":
         set_cuda_numerics()
-    if name != "kimia":
-        raise NotImplementedError(f"encoder {name!r} is not ported yet")
     nr_types = int(config.get("n_node_type", 6))
+    feat_dim = int(config.get("feature_dim", 1024))
     dtype = torch.bfloat16 if dev.type == "cuda" else torch.float32
-    if kimia_variables is None:
-        kimia_variables = load_cnn_variables(
-            "kimia", KimiaNet(), kimianet_config.get("kimianet_model_path"),
-            seed + 1)
-    fp = fuse_kimianet(kimia_variables, dtype=dtype, device=dev)
+    if name == "hover":
+        model, _ = _card_dtype(make_hovernet(
+            hovernet_config, nr_types, dev, hover_variables, seed,
+            feat_dim=feat_dim), dev)
 
-    def feat_part(imgs):
-        return kimianet_fused_apply(fp, imgs.to(dtype))[0]
+        def full(imgs):
+            return hovernet_full_apply(model, imgs.to(dtype), nr_types)
+
+        encode = _make_encode(full, dev, pad_batch_to)
+        encode.stages = {"hovernet": full}
+        return encode
+    if name == "kimia":
+        if kimia_variables is None:
+            kimia_variables = load_cnn_variables(
+                "kimia", KimiaNet(),
+                kimianet_config.get("kimianet_model_path"), seed + 1)
+        fp = fuse_kimianet(kimia_variables, dtype=dtype, device=dev)
+
+        def feat_part(imgs):
+            return kimianet_fused_apply(fp, imgs.to(dtype))[0]
+
+        stage = "kimianet"
+    elif name == "efficientnet-b4":
+        from ... import convert as bridge
+
+        with torch.device(dev):
+            model = EfficientNet.from_name(name, num_classes=feat_dim)
+        if efficientnet_variables is None:
+            efficientnet_variables = load_cnn_variables(
+                "efficientnet", model, config.get("efficientnet_model_path"),
+                seed + 2)
+        model, _ = _card_dtype(bridge.load_flax_variables(
+            model, efficientnet_variables).eval(), dev)
+
+        def feat_part(imgs):
+            return efficientnet_apply(model, imgs.to(dtype))
+
+        stage = "efficientnet"
+    else:
+        raise NotImplementedError(f"encoder {name!r}")
 
     fn = feat_part
-    stages = {"kimianet": feat_part}
+    stages = {stage: feat_part}
     if with_typing:
         typing_dev = make_hover_typing_device(
             dict(hovernet_config), nr_types, dev, hover_variables, seed)

@@ -2,25 +2,26 @@
 numpy variable trees (counterpart of wsi_hgnn_tpu/models/featurizers/
 convert.py; a copy, so the port imports nothing of the JAX package).
 
-The reference loads two external checkpoints that the port's encoders run:
+The reference loads three external checkpoints:
   * HoVer-Net PanNuke (`hovernet_fast_pannuke_type_tf2pytorch.tar`), with
     a DataParallel 'module.' strip and strict=False: keys the file lacks
     (the repo's custom fc1 head) keep their init;
   * KimiaNet DenseNet-121 weights, copied by ZIP ORDER onto the
-    torchvision state dict's key order.
+    torchvision state dict's key order;
+  * EfficientNet-B4 ImageNet weights under efficientnet_pytorch's names,
+    whose 1000-way `_fc` the 1024-d feature head does not take.
 
 Each converter takes a torch state dict as numpy arrays and returns
 {'params': ..., 'batch_stats': ...} in the flax modules' layout, the form
 `convert.load_flax_variables` and `fuse_kimianet` consume: conv OIHW ->
 HWIO, linear [out, in] -> [in, out], BatchNorm weight/bias -> scale/bias
-and running_mean/var -> batch_stats. `kimianet_state_dict` and
-`hovernet_state_dict` are the inverse maps, which write flax trees as
-files in the reference's layout. The EfficientNet map waits for the
-EfficientNet encoder.
+and running_mean/var -> batch_stats. `kimianet_state_dict`,
+`hovernet_state_dict` and `efficientnet_state_dict` are the inverse maps,
+which write flax trees as files in the reference's layout.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -279,7 +280,8 @@ def kimianet_state_dict(variables: Dict) -> Dict[str, np.ndarray]:
 
 def hovernet_module_keys() -> List[Tuple[str, List[str], str]]:
     """(reference module name, flax path, 'conv' | 'bn') of every module
-    hovernet_torch_to_flax maps (fc1 aside)."""
+    hovernet_torch_to_flax maps, the tp/np/hv decoders included (fc1, a
+    plain linear, aside)."""
     out = [("conv0./", ["conv0"], "conv"), ("conv0.bn", ["bn0"], "bn")]
     for d, units in _HOVER_RES_UNITS.items():
         out.append((f"{d}.shortcut", [d, "shortcut"], "conv"))
@@ -315,7 +317,8 @@ def hovernet_module_keys() -> List[Tuple[str, List[str], str]]:
 def hovernet_state_dict(variables: Dict) -> Dict[str, np.ndarray]:
     """HoVer-Net flax variables as the reference checkpoint's tensors,
     for the modules the tree holds (a typing-only tree has no np/hv
-    decoders); hovernet_torch_to_flax reads them back."""
+    decoders and no fc1; fc1 is written over torch's NCHW flatten);
+    hovernet_torch_to_flax reads them back."""
     p, s = variables["params"], variables["batch_stats"]
     sd: Dict[str, np.ndarray] = {}
     for key, path, kind in hovernet_module_keys():
@@ -332,6 +335,107 @@ def hovernet_state_dict(variables: Dict) -> Dict[str, np.ndarray]:
                        f"{key}.bias": _leaf(p, path + ["bn", "bias"]),
                        f"{key}.running_mean": _leaf(s, path + ["bn", "mean"]),
                        f"{key}.running_var": _leaf(s, path + ["bn", "var"])})
+    if _leaf(p, ["fc1", "kernel"]) is not None:
+        sd["fc1.weight"] = _fc1_to_torch(_leaf(p, ["fc1", "kernel"]))
+        sd["fc1.bias"] = _leaf(p, ["fc1", "bias"])
+    return {k: np.ascontiguousarray(v) for k, v in sd.items()}
+
+
+def _fc1_to_torch(kernel: np.ndarray) -> np.ndarray:
+    """fc1's flax kernel [32*32*1024 (H, W, C), F] as the reference's
+    nn.Linear weight [F, C*H*W] over torch's NCHW flatten."""
+    f = kernel.shape[1]
+    if kernel.shape[0] == 1024 * 32 * 32:
+        kernel = kernel.reshape(32, 32, 1024, f).transpose(2, 0, 1, 3)
+    return np.ascontiguousarray(kernel.reshape(-1, f).T)
+
+
+# --------------------------------------------------------------------- #
+# EfficientNet (efficientnet_pytorch naming)
+# --------------------------------------------------------------------- #
+def efficientnet_torch_to_flax(sd: Dict[str, np.ndarray],
+                               num_classes: Optional[int] = None) -> Dict:
+    """efficientnet_pytorch state dict (_conv_stem/_blocks.N._*/_fc) ->
+    featurizers.efficientnet.EfficientNet trees. The reference's fc is
+    freshly initialised (from_pretrained(num_classes=1024) re-inits it), so
+    an absent or mismatched _fc is skipped (pass num_classes to accept a
+    matching head). Strips DataParallel's 'module.'."""
+    sd = strip_dataparallel(sd)
+    params: Dict = {}
+    stats: Dict = {}
+
+    def conv(flax_path, key, bias=False):
+        if key + ".weight" in sd:
+            _set(params, flax_path + ["kernel"], conv_w(sd[key + ".weight"]))
+            if bias and key + ".bias" in sd:
+                _set(params, flax_path + ["bias"], sd[key + ".bias"])
+
+    def bn(flax_path, key):
+        if key + ".weight" in sd:
+            _bn(params, stats, flax_path, sd, key)
+
+    for key, path, kind in efficientnet_module_keys(_n_blocks(sd)):
+        if kind == "bn":
+            bn(path, key)
+        else:
+            conv(path, key, bias=kind == "conv_bias")
+    if "_fc.weight" in sd and num_classes is not None and int(
+            sd["_fc.weight"].shape[0]) == num_classes:
+        _set(params, ["fc", "kernel"], linear_w(sd["_fc.weight"]))
+        _set(params, ["fc", "bias"], sd["_fc.bias"])
+    return {"params": params, "batch_stats": stats}
+
+
+def _n_blocks(sd: Dict) -> int:
+    i = 0
+    while f"_blocks.{i}._depthwise_conv.weight" in sd:
+        i += 1
+    return i
+
+
+def efficientnet_module_keys(n_blocks: int
+                             ) -> List[Tuple[str, List[str], str]]:
+    """(efficientnet_pytorch module name, flax path, 'conv' | 'conv_bias'
+    | 'bn') of every module but the fc head, in the file's order."""
+    out = [("_conv_stem", ["conv_stem"], "conv"), ("_bn0", ["bn_stem"], "bn")]
+    for i in range(n_blocks):
+        b, t = [f"block{i}"], f"_blocks.{i}"
+        out += [(f"{t}._expand_conv", b + ["expand_conv"], "conv"),
+                (f"{t}._bn0", b + ["bn0"], "bn"),
+                (f"{t}._depthwise_conv", b + ["depthwise_conv"], "conv"),
+                (f"{t}._bn1", b + ["bn1"], "bn"),
+                (f"{t}._se_reduce", b + ["se_reduce"], "conv_bias"),
+                (f"{t}._se_expand", b + ["se_expand"], "conv_bias"),
+                (f"{t}._project_conv", b + ["project_conv"], "conv"),
+                (f"{t}._bn2", b + ["bn2"], "bn")]
+    out += [("_conv_head", ["conv_head"], "conv"), ("_bn1", ["bn_head"], "bn")]
+    return out
+
+
+def efficientnet_state_dict(variables: Dict) -> Dict[str, np.ndarray]:
+    """EfficientNet flax variables as an efficientnet_pytorch state dict
+    (with the fc head as `_fc`); efficientnet_torch_to_flax reads it
+    back."""
+    p, s = variables["params"], variables["batch_stats"]
+    n_blocks = sum(1 for k in p if k.startswith("block"))
+    sd: Dict[str, np.ndarray] = {}
+    for key, path, kind in efficientnet_module_keys(n_blocks):
+        if kind == "bn":
+            if _leaf(p, path + ["scale"]) is not None:
+                sd.update({f"{key}.weight": _leaf(p, path + ["scale"]),
+                           f"{key}.bias": _leaf(p, path + ["bias"]),
+                           f"{key}.running_mean": _leaf(s, path + ["mean"]),
+                           f"{key}.running_var": _leaf(s, path + ["var"])})
+            continue
+        w = _leaf(p, path + ["kernel"])
+        if w is None:   # no expansion conv in expand-1 blocks
+            continue
+        sd[f"{key}.weight"] = w.transpose(3, 2, 0, 1)
+        if kind == "conv_bias":
+            sd[f"{key}.bias"] = _leaf(p, path + ["bias"])
+    if _leaf(p, ["fc", "kernel"]) is not None:
+        sd["_fc.weight"] = linear_w(_leaf(p, ["fc", "kernel"]))
+        sd["_fc.bias"] = _leaf(p, ["fc", "bias"])
     return {k: np.ascontiguousarray(v) for k, v in sd.items()}
 
 

@@ -1,12 +1,20 @@
-"""HoVer-Net nucleus typing (counterpart of the typing part of
-wsi_hgnn_tpu/models/featurizers/hovernet.py): the pre-activation ResNet50
-encoder with TF 'same' padding quirks and the `tp` decoder branch of
-valid convolutions and dense blocks. Modules run NCHW inside; the public
-functions take NHWC patches, as the JAX package's do. The np/hv branches
-and the fc1 feature head are not ported yet.
+"""HoVer-Net (counterpart of wsi_hgnn_tpu/models/featurizers/hovernet.py):
+the pre-activation ResNet50 encoder with TF 'same' padding quirks, the
+tp/np/hv decoder branches of valid convolutions and dense blocks, and the
+repo's fc1 bottleneck feature over the 32x32x1024 encoder output. Modules
+run NCHW inside; the public functions take NHWC patches, as the JAX
+package's do.
+
+Two uses: nucleus typing (encoder + tp branch + a per-patch majority vote,
+`HoVerNet.typing` builds the net without np/hv and fc1) and the 'hover'
+encoder (`hovernet_full_apply`: typing plus the fc1 features).
 """
 from __future__ import annotations
 
+import math
+from typing import Sequence, Tuple
+
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -119,7 +127,7 @@ def _upsample2x(x):
 
 
 class DecoderBranch(nn.Module):
-    """One decoder branch (the port runs `tp`)."""
+    """One tp/np/hv decoder branch."""
 
     def __init__(self, out_ch: int, ksize: int):
         super().__init__()
@@ -143,14 +151,51 @@ class DecoderBranch(nn.Module):
         return self.u0_conv(self.u0_bn(self.u1_conva(u1)))
 
 
-class HoVerNet(nn.Module):
-    """Encoder + `tp` branch of HoVer-Net ('fast' mode expects 256x256)."""
+class ChunkedDense(nn.Module):
+    """fc1: a dense layer whose kernel is kept in flax's [K, F] layout (the
+    JAX module's name and parameter tree; it scans K in chunks to keep its
+    program small, which the one product here does not need). At K =
+    32*32*1024 and F = 1024 the kernel is 4.3 GB in f32."""
 
-    def __init__(self, nr_types: int = 6, mode: str = "fast"):
+    def __init__(self, in_features: int, features: int):
+        super().__init__()
+        self.kernel = nn.Parameter(torch.empty(in_features, features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x):
+        return torch.addmm(self.bias, x, self.kernel)
+
+    @torch.no_grad()
+    def seed_(self, seed: int) -> "ChunkedDense":
+        """flax's init (lecun-normal kernel, zero bias), drawn on the
+        kernel's own device: a generator there, so a 4 GB kernel is never
+        made on the host. Devices draw different streams from one seed."""
+        from ...convert import trunc_normal
+
+        gen = torch.Generator(device=self.kernel.device).manual_seed(seed)
+        self.kernel.copy_(trunc_normal(
+            self.kernel.shape, math.sqrt(1.0 / self.kernel.shape[0]), gen))
+        self.bias.zero_()
+        return self
+
+
+BRANCHES = ("tp", "np", "hv")
+FC1_IN = 32 * 32 * 1024   # the 32x32x1024 bottleneck of a 256x256 patch
+
+
+class HoVerNet(nn.Module):
+    """HoVer-Net ('fast' mode expects 256x256): encoder, the decoders in
+    `branches` (tp has nr_types channels, np and hv 2 each), and fc1 over
+    the NHWC-flattened bottleneck when with_fc1."""
+
+    def __init__(self, nr_types: int = 6, mode: str = "fast",
+                 feat_dim: int = 1024, with_fc1: bool = True,
+                 branches: Sequence[str] = BRANCHES):
         super().__init__()
         if mode not in ("original", "fast"):
             raise ValueError(f"unknown HoVer-Net mode {mode!r}")
-        self.mode = mode
+        self.nr_types, self.mode = nr_types, mode
+        self.branches = tuple(branches)
         self.conv0 = _conv(3, 64, 7)
         self.bn0 = BNRelu(64)
         self.d0 = ResidualBlock(64, (64, 64, 256), 3, stride=1)
@@ -158,8 +203,16 @@ class HoVerNet(nn.Module):
         self.d2 = ResidualBlock(512, (256, 256, 1024), 6, stride=2)
         self.d3 = ResidualBlock(1024, (512, 512, 2048), 3, stride=2)
         self.conv_bot = _conv(2048, 1024, 1)
-        self.decoder_tp = DecoderBranch(nr_types,
-                                        5 if mode == "original" else 3)
+        ksize = 5 if mode == "original" else 3
+        for name in self.branches:
+            self.add_module(f"decoder_{name}", DecoderBranch(
+                nr_types if name == "tp" else 2, ksize))
+        self.fc1 = ChunkedDense(FC1_IN, feat_dim) if with_fc1 else None
+
+    @classmethod
+    def typing(cls, nr_types: int = 6, mode: str = "fast") -> "HoVerNet":
+        """The typing net: encoder and tp branch only."""
+        return cls(nr_types, mode, with_fc1=False, branches=("tp",))
 
     def encode(self, imgs):
         """NCHW pixels -> the cropped skips (d0, d1, d2, d3)."""
@@ -173,9 +226,33 @@ class HoVerNet(nn.Module):
             return crop_op(d0, (184, 184)), crop_op(d1, (72, 72)), d2, d3
         return crop_op(d0, (92, 92)), crop_op(d1, (36, 36)), d2, d3
 
+    def decode_branch(self, name: str, d):
+        return getattr(self, f"decoder_{name}")(d)
+
+    def feature_head(self, d3):
+        """fc1 over d3 [B, 1024, 32, 32] flattened NHWC, as the JAX module
+        flattens it (the reference's torch weight is over the NCHW
+        flatten; convert.py reorders its columns)."""
+        return self.fc1(d3.permute(0, 2, 3, 1).reshape(d3.shape[0], -1))
+
     def forward(self, imgs):
-        """NCHW pixels -> tp logits NCHW."""
-        return self.decoder_tp(self.encode(imgs))
+        """NCHW pixels -> ({branch: NCHW map}, fc1 features | None)."""
+        d = self.encode(imgs)
+        out = {name: self.decode_branch(name, d) for name in self.branches}
+        return out, (self.feature_head(d[3]) if self.fc1 is not None
+                     else None)
+
+
+def node_types_from_tp(tp_map: np.ndarray, nr_types: int = 6) -> np.ndarray:
+    """Host twin of node_types_on_device over [B, H, W, T] logits: the
+    majority NONZERO class of the argmax map, 0 with no nucleus pixel."""
+    types = np.asarray(tp_map).argmax(axis=-1)
+    out = np.zeros(types.shape[0], np.int32)
+    for i, t in enumerate(types):
+        nz = t[t != 0]
+        out[i] = 0 if nz.size == 0 else int(
+            np.bincount(nz, minlength=nr_types).argmax())
+    return out
 
 
 def node_types_on_device(tp_logits: torch.Tensor, nr_types: int = 6
@@ -199,13 +276,32 @@ def _constructor_orientation(imgs: torch.Tensor) -> torch.Tensor:
     return imgs.transpose(1, 2)
 
 
+def _nchw(x: torch.Tensor) -> torch.Tensor:
+    """NHWC -> NCHW, channels-last in memory on the card (cuDNN's fast
+    layout)."""
+    x = x.permute(0, 3, 1, 2)
+    if x.is_cuda:
+        x = x.contiguous(memory_format=torch.channels_last)
+    return x
+
+
 def hovernet_typing_apply(model: HoVerNet, imgs: torch.Tensor,
                           nr_types: int = 6) -> torch.Tensor:
     """NHWC pixels [B, 256, 256, 3] -> node types [B] int32: encoder, tp
     decoder and the on-device majority vote, on the constructor's
     transposed orientation."""
-    x = _constructor_orientation(imgs).permute(0, 3, 1, 2)
-    if x.is_cuda:
-        x = x.contiguous(memory_format=torch.channels_last)
-    tp = model(x)
+    d = model.encode(_nchw(_constructor_orientation(imgs)))
+    tp = model.decode_branch("tp", d)
     return node_types_on_device(tp.permute(0, 2, 3, 1), nr_types)
+
+
+def hovernet_full_apply(model: HoVerNet, imgs: torch.Tensor,
+                        nr_types: int = 6
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The 'hover' encoder: NHWC pixels [B, 256, 256, 3] -> (fc1 features
+    [B, feat_dim] f32, node types [B] int32), both from the constructor's
+    transposed orientation; np/hv are not run."""
+    d = model.encode(_nchw(_constructor_orientation(imgs)))
+    tp = model.decode_branch("tp", d)
+    feats = model.feature_head(d[3]).float()
+    return feats, node_types_on_device(tp.permute(0, 2, 3, 1), nr_types)

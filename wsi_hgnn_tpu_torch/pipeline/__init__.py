@@ -1,11 +1,24 @@
-"""Graph-construction pipeline of the port: patch loading, slide-to-graph
-construction on the device, train/val/test splits."""
-from .construct import (GraphConstructor, build_default_encoder,
-                        construct_all, make_encoder, random_encoder)
-from .patches import iter_patch_batches, list_patches, load_patch
-from .splits import generate_splits, write_split_lists
+"""Graph-construction pipeline of the port: slide tiling, patch loading,
+slide-to-graph construction on the device, train/val/test splits.
 
-__all__ = ["GraphConstructor", "build_default_encoder", "construct_all",
-           "generate_splits", "iter_patch_batches", "list_patches",
-           "load_patch", "make_encoder", "random_encoder",
-           "write_split_lists"]
+Names load lazily from their modules, so a spawned tiling worker that
+imports `pipeline.tiler` does not import torch with `construct`."""
+from importlib import import_module
+
+_EXPORTS = {
+    "GraphConstructor": "construct", "build_default_encoder": "construct",
+    "construct_all": "construct", "make_encoder": "construct",
+    "random_encoder": "construct",
+    "iter_patch_batches": "patches", "list_patches": "patches",
+    "load_patch": "patches",
+    "generate_splits": "splits", "write_split_lists": "splits",
+    "DeepZoomStaticTiler": "tiler", "PilDeepZoom": "tiler",
+    "nested_patches": "tiler", "tile_slides": "tiler",
+}
+__all__ = sorted(_EXPORTS)
+
+
+def __getattr__(name):
+    if name not in _EXPORTS:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    return getattr(import_module(f".{_EXPORTS[name]}", __name__), name)

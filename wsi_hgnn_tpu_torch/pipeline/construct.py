@@ -10,8 +10,9 @@ homogeneous/<slide>.npz and node_types/<slide>.npy.
 
 Encoders are callables `(patches [B, 256, 256, 3] f32 in [0, 1], or raw
 uint8 when the encoder sets .accepts_uint8) -> (features [B, D],
-node_types [B] | None)`: 'kimia' (KimiaNet + inline HoVer-Net typing,
-models.featurizers.make_cnn_encoder), 'random' (tests), 'precomputed'
+node_types [B] | None)`: 'kimia' and 'efficientnet-b4' (with inline
+HoVer-Net typing) and 'hover' (HoVer-Net fc1 features and types), all
+models.featurizers.make_cnn_encoder; 'random' (tests); 'precomputed'
 (<slide>.features.npz on disk). One encoder serves a whole run.
 """
 from __future__ import annotations
@@ -68,17 +69,20 @@ def encoder_mesh(config: Dict, device: torch.device):
         "is not ported yet (ROADMAP.md item 7); set dp_devices: 1")
 
 
+CNN_ENCODERS = ("kimia", "efficientnet-b4", "hover")
+
+
 def check_encoder(config: Dict, device: torch.device) -> None:
     """Raise unless the port can build the config's encoder on `device`:
-    the 'hover' and EfficientNet encoders are not ported yet (ROADMAP.md
-    item 4), nor several-card encoders (encoder_mesh). construct_all
-    checks this before its loop, whose per-slide skip would otherwise
-    turn the error into a run that writes nothing."""
+    an encoder name outside the registry ('efficientnet-b7', which the
+    JAX package does not build either) or CNN encoders over several cards
+    (encoder_mesh). construct_all checks this before its loop, whose
+    per-slide skip would otherwise turn the error into a run that writes
+    nothing."""
     name = config["encoder_name"]
-    if name not in ("random", "kimia", "precomputed"):
-        raise NotImplementedError(
-            f"encoder {name!r} is not ported yet (ROADMAP.md item 4)")
-    if name == "kimia":
+    if name not in ("random", "precomputed") + CNN_ENCODERS:
+        raise NotImplementedError(f"encoder {name!r}")
+    if name in CNN_ENCODERS:
         encoder_mesh(config, device)
 
 
@@ -87,34 +91,34 @@ def make_encoder(name: str, config: Dict, hovernet_config: Dict,
                  pad_batch_to: Optional[int] = None,
                  device=None) -> EncoderFn:
     """The encoder registry of the reference constructor's dispatch on
-    `encoder_name`: 'random', or 'kimia' (with_typing adds HoVer-Net
-    typing over the same patch chunk). pad_batch_to pads every chunk to
-    one batch size."""
+    `encoder_name`: 'random', or a CNN encoder ('kimia',
+    'efficientnet-b4', 'hover'; with_typing adds HoVer-Net typing over
+    the same patch chunk to the first two). pad_batch_to pads every chunk
+    to one batch size."""
     if name == "random":
         return random_encoder(config.get("feature_dim", 1024),
                               n_types=config.get("n_node_type", 6))
-    if name == "kimia":
+    if name in CNN_ENCODERS:
         from ..models.featurizers import make_cnn_encoder
 
         return make_cnn_encoder(name, config, hovernet_config,
                                 kimianet_config, with_typing=with_typing,
                                 pad_batch_to=pad_batch_to, device=device)
-    raise NotImplementedError(
-        f"encoder {name!r} is not ported yet (ROADMAP.md item 4)")
+    raise NotImplementedError(f"encoder {name!r}")
 
 
 def build_default_encoder(config: Dict, hovernet_config: Dict,
                           kimianet_config: Dict,
                           device=None) -> Optional[EncoderFn]:
     """The encoder a GraphConstructor builds for this config, made once per
-    run ('precomputed' needs none). HoVer-Net typing runs inline whenever
-    no node_type_dir is given, as in the reference constructor;
-    `inline_typing: false` opts out. Chunks are padded to the hovernet
-    batch_size."""
+    run ('precomputed' needs none). HoVer-Net typing runs inline beside
+    KimiaNet or EfficientNet whenever no node_type_dir is given, as in the
+    reference constructor; `inline_typing: false` opts out ('hover' types
+    the patches itself). Chunks are padded to the hovernet batch_size."""
     enc_name = config["encoder_name"]
     if enc_name == "precomputed":
         return None
-    want_typing = (enc_name == "kimia"
+    want_typing = (enc_name in ("kimia", "efficientnet-b4")
                    and config.get("node_type_dir") is None
                    and bool(config.get("inline_typing", True)))
     check_encoder(config, resolve_device(device))
