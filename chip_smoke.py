@@ -67,15 +67,32 @@
    patch in the encoder, peak memory, busy share and KNN launches per
    config, each CNN on the card against the CPU in f32 and the written
    bf16 features against the CPU's f32.
+10. Explanation (explain, after 9.): tile_build's slide and its 'hover'
+   graph laid out as a Camelyon16 test set (reference.csv, an annotation
+   XML tracing a tissue ellipse, the slide image as the thumbnail),
+   `python -m wsi_hgnn_tpu_torch.main -mode graph_explain` in process on
+   the card with configs/BRCA/HEAT4_kimia_classification.yml
+   (HetGemExplainer) from a seeded version-1 checkpoint: the pixel AUC,
+   the heatmaps written; then a 10 x 10-tile window of the slide as a
+   second layout, explained on the card and on the CPU: the scores to
+   1e-4, the AUCs equal; ms per slide for HetGEM, GEM on GCN and a
+   100-step GNNExplainer on a seeded 2048-node slide.
+11. MIL (mil, after 6.): `python -m wsi_hgnn_tpu_torch.train_mil` in
+   process on the training cohort's 12 slides as bags, 2 folds x 2
+   epochs of abmil, dsmil with ReMix 'cov' and gtn; one step of each on
+   the card against the CPU; ms per step and peak memory per model.
 The zoo (6.) also trains, evaluates and serves GCN with ASAP pooling
 (configs/BRCA/GCN_asap_classification.yml). The card-vs-CPU steps compare
-every parameter's gradient, with a float64 CPU step as the judge of
-misses the f32 arithmetic explains (GRAD_RTOL, GRAD_F32). Counters are
-zeroed before each phase's main path and read after it.
+every parameter's gradient; a miss passes only where float64 explains it
+(wsi_hgnn_tpu_torch/train/gradcheck.py: the card's float64 step equal to
+the CPU's, the card's f32 within the f32 rounding that randomly rounded
+float64 steps show). Counters are zeroed before each phase's main path
+and read after it.
 
 The line before the last is the kernels JSON (launches summed over the
 served requests, the server traffic, the training slice, the zoo's
-served slides and the constructions), the last line the device JSON. Any
+served slides, the constructions, the explanation and the MIL runs), the
+last line the device JSON. Any
 failed check exits non-zero. Imports nothing of JAX.
 """
 from __future__ import annotations
@@ -863,70 +880,31 @@ def write_cohort(torch, dev, root: Path, in_dim: int, n_range, seed=0):
     return splits
 
 
-# card vs CPU gradients of one step, per parameter tensor: the relative L2
-# error ||g_card - g_cpu|| / ||g_cpu|| within GRAD_RTOL (the zoo's CPU
-# parity bound against JAX). A tensor beyond it passes only where the f32
-# arithmetic explains the miss, judged by the same step in float64 on the
-# CPU: ||g_card - g_64|| <= GRAD_F32 ||g_cpu - g_64|| + GRAD_NOISE G_64,
-# G_64 the model's largest float64 gradient norm. Gradients that cancel
-# to about 0 (attention key and gate biases under a softmax, prediction
-# biases summed from per-slide terms of opposite sign) and GAT's attention
-# gradients carry f32 errors above 1e-4 of themselves on either device;
-# one whose exact value is 0 carries rounding noise only, a few ulps of
-# the gradients it was summed from.
-GRAD_RTOL, GRAD_F32, GRAD_NOISE = 1e-4, 3.0, 1e-6
+def grad_check(torch, named_cpu, named_dev, named_f64, run64, base64,
+               dev):
+    """Four models' `.grad` after the same step, judged by float64
+    (wsi_hgnn_tpu_torch/train/gradcheck.py): the CPU in f32, the card in
+    f32, the CPU in float64 (`named_f64`); `run64(model, device)` runs
+    the float64 step in place, `base64` is the float64 model before it.
+    The card's float64 step and the randomly rounded float64 steps (on
+    the card) run only when some tensor is beyond GRAD_RTOL. Returns (one
+    log fragment, the names of the tensors that fail)."""
+    import copy
 
+    from wsi_hgnn_tpu_torch.train import gradcheck
 
-class float64_default:
-    """Context: float64 as torch's default float type (the reference
-    step's tensors created inside the step), restored on exit."""
+    named_f64 = list(named_f64)
+    g64 = {n: p.grad.detach().double() for n, p in named_f64}
 
-    def __init__(self, torch):
-        self.torch = torch
+    def card64():
+        m = copy.deepcopy(base64).to(dev)
+        run64(m, dev)
+        return m.named_parameters()
 
-    def __enter__(self):
-        self.old = self.torch.get_default_dtype()
-        self.torch.set_default_dtype(self.torch.float64)
-
-    def __exit__(self, *exc):
-        self.torch.set_default_dtype(self.old)
-
-
-def grad_check(torch, named_cpu, named_dev, named_f64):
-    """Three models' `.grad` after the same step (the step zeroes them
-    before its backward and leaves them set): on the CPU in f32, on the
-    card, on the CPU in float64. Returns (one log fragment, the names of
-    the tensors that fail). A CPU gradient that is exactly zero (a dead
-    layer) must be exactly zero on the card."""
-    rows = [(name, p32.grad.detach().double(),
-             pd.grad.detach().cpu().double(), p64.grad.detach())
-            for (name, p32), (_, pd), (_, p64) in zip(named_cpu, named_dev,
-                                                      named_f64)]
-    noise = GRAD_NOISE * max(float(g64.norm()) for *_, g64 in rows)
-    rel, explained, failed = {}, {}, []
-    for name, g32, gd, g64 in rows:
-        den = float(g32.norm())
-        if den == 0.0:
-            if gd.any():
-                failed.append(name)
-            continue
-        rel[name] = float((gd - g32).norm()) / den
-        if rel[name] > GRAD_RTOL:
-            bound = GRAD_F32 * float((g32 - g64).norm()) + noise
-            explained[name] = float((gd - g64).norm()) / bound
-            if explained[name] > 1.0:
-                failed.append(name)
-    w_rel = max(rel, key=rel.get)
-    text = (f"gradients of {len(rel)} nonzero parameter tensors: largest "
-            f"rel L2 err {rel[w_rel]:.3g} ({w_rel}); "
-            f"{len(rel) - len(explained)} within {GRAD_RTOL:g}")
-    if explained:
-        w_ex = max(explained, key=explained.get)
-        text += (f", {len(explained)} beyond it judged by the float64 step:"
-                 f" largest error over its bound {explained[w_ex]:.3g} "
-                 f"({w_ex}; bound {GRAD_F32:g} x the CPU f32 error + "
-                 f"{GRAD_NOISE:g} of the largest gradient norm)")
-    return text, failed
+    return gradcheck.judge(
+        named_cpu, named_dev, named_f64,
+        lambda: gradcheck.rounding_spread(lambda m: run64(m, dev), base64,
+                                          g64, device=dev), card64)
 
 
 def step_on_card_vs_cpu(torch, dev, cfg, data, k: int, cap: int):
@@ -942,6 +920,7 @@ def step_on_card_vs_cpu(torch, dev, cfg, data, k: int, cap: int):
                                                         lattice_to_torch)
     from wsi_hgnn_tpu_torch.models.lattice import TrainMasks, draw_train_masks
     from wsi_hgnn_tpu_torch.train import lattice_train_step
+    from wsi_hgnn_tpu_torch.train.gradcheck import float64_default
     from wsi_hgnn_tpu_torch.utils import to_torch
 
     cpu = torch.device("cpu")
@@ -953,7 +932,7 @@ def step_on_card_vs_cpu(torch, dev, cfg, data, k: int, cap: int):
     masks = draw_train_masks(g_cpu, gen)
     drops = model.draw_dropout_masks(g_cpu, gen)
     loss_fn = parse_loss(cfg["train"])
-    m64 = copy.deepcopy(model).double()
+    base64 = copy.deepcopy(model).double()
     out = {}
     for device, m in ((cpu, copy.deepcopy(model)), (dev, model.to(dev))):
         loss, _ = lattice_train_step(
@@ -963,16 +942,23 @@ def step_on_card_vs_cpu(torch, dev, cfg, data, k: int, cap: int):
             masks=TrainMasks(*(t.to(device) for t in masks)),
             drop_masks=[t.to(device) for t in drops])
         out[device.type] = (float(loss), list(m.named_parameters()))
-    g64 = lattice_to_torch(g_np, cpu)
-    with float64_default(torch):
-        lattice_train_step(
-            m64, parse_optimizer(cfg["optimizer"], m64.parameters()), loss_fn,
-            g64._replace(feats=g64.feats.double(), sim=g64.sim.double()),
-            to_torch(labels, cpu, torch.int64),
-            to_torch(weights, cpu).double(), masks=masks, drop_masks=drops)
+
+    def run64(m, device):
+        g = lattice_to_torch(g_np, device)
+        with float64_default():
+            lattice_train_step(
+                m, parse_optimizer(cfg["optimizer"], m.parameters()), loss_fn,
+                g._replace(feats=g.feats.double(), sim=g.sim.double()),
+                to_torch(labels, device, torch.int64),
+                to_torch(weights, device).double(),
+                masks=TrainMasks(*(t.to(device) for t in masks)),
+                drop_masks=[t.to(device) for t in drops])
+
+    m64 = copy.deepcopy(base64)
+    run64(m64, cpu)
     (l_cpu, p_cpu), (l_dev, p_dev) = out["cpu"], out[dev.type]
     return (abs(l_dev - l_cpu) / abs(l_cpu),) + grad_check(
-        torch, p_cpu, p_dev, m64.named_parameters())
+        torch, p_cpu, p_dev, m64.named_parameters(), run64, base64, dev)
 
 
 def train_phase(torch, dev, card, kernels, root: Path, n_range=TRAIN_N,
@@ -1172,6 +1158,7 @@ def typed_step_on_card_vs_cpu(torch, dev, cfg, trainer):
     from wsi_hgnn_tpu_torch.graph.typed_graph import to_homogeneous
     from wsi_hgnn_tpu_torch.models import DropSource
     from wsi_hgnn_tpu_torch.train import typed_train_step
+    from wsi_hgnn_tpu_torch.train.gradcheck import float64_default
     from wsi_hgnn_tpu_torch.utils import to_torch
 
     cpu = torch.device("cpu")
@@ -1185,7 +1172,7 @@ def typed_step_on_card_vs_cpu(torch, dev, cfg, trainer):
         g_cpu if hetero else to_homogeneous(g_cpu), gen)
     drops = DropSource(gen)
     loss_fn = parse_loss(cfg["train"])
-    m64 = copy.deepcopy(model).double()
+    base64 = copy.deepcopy(model).double()
     out = {}
     for device, m, src in ((cpu, copy.deepcopy(model), drops),
                            (dev, model.to(dev), None)):
@@ -1197,17 +1184,23 @@ def typed_step_on_card_vs_cpu(torch, dev, cfg, trainer):
             masks=transforms.TrainMasks(*(t.to(device) for t in masks)),
             drops=src)
         out[device.type] = (float(loss), list(m.named_parameters()))
-    g64 = host.to_torch(cpu)
-    with float64_default(torch):
-        typed_train_step(
-            m64, parse_optimizer(cfg["optimizer"], m64.parameters()), loss_fn,
-            g64.replace(feat=g64.feat.double(), sim=g64.sim.double()),
-            to_torch(labels, cpu, torch.int64),
-            to_torch(weights, cpu).double(), hetero, masks=masks,
-            drops=DropSource(masks=drops.used))
+
+    def run64(m, device):
+        g = host.to_torch(device)
+        with float64_default():
+            typed_train_step(
+                m, parse_optimizer(cfg["optimizer"], m.parameters()), loss_fn,
+                g.replace(feat=g.feat.double(), sim=g.sim.double()),
+                to_torch(labels, device, torch.int64),
+                to_torch(weights, device).double(), hetero,
+                masks=transforms.TrainMasks(*(t.to(device) for t in masks)),
+                drops=DropSource(masks=[t.to(device) for t in drops.used]))
+
+    m64 = copy.deepcopy(base64)
+    run64(m64, cpu)
     (l_cpu, p_cpu), (l_dev, p_dev) = out["cpu"], out[dev.type]
     return (abs(l_dev - l_cpu) / abs(l_cpu),) + grad_check(
-        torch, p_cpu, p_dev, m64.named_parameters())
+        torch, p_cpu, p_dev, m64.named_parameters(), run64, base64, dev)
 
 
 def zoo_phase(torch, dev, card, kernels, root: Path, splits, widths=None):
@@ -1311,8 +1304,10 @@ def zoo_phase(torch, dev, card, kernels, root: Path, splits, widths=None):
             timed_step(*batch)
         ms = float(np.median(step_ms[-ZOO_TIMED_STEPS:]))
         peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        t_check = time.perf_counter()
         rel, text, failed = typed_step_on_card_vs_cpu(torch, dev, cfg,
                                                       trainer)
+        t_check = time.perf_counter() - t_check
         if rel > 1e-5 or failed:
             step_failures.append(f"{tag}: loss {rel}, gradients of {failed}")
         widths_of = ", ".join(f"{k} {g[k]}" for k in (
@@ -1323,8 +1318,8 @@ def zoo_phase(torch, dev, card, kernels, root: Path, splits, widths=None):
             f"{t_train:.1f} s): losses {[round(x, 5) for x in trained]}, test "
             f"metrics {[round(x, 5) for x in got]}; served vs evaluator "
             f"max|err| {err:.3g} (atol 1e-4), {knn} KNN launches for {n_test}"
-            f" slides; card vs CPU step loss rel err {rel:.3g} (<= 1e-5), "
-            f"{text}")
+            f" slides; card vs CPU step ({t_check:.1f} s) loss rel err "
+            f"{rel:.3g} (<= 1e-5), {text}")
         log(f"timing zoo {tag}: {ms:.2f} ms per train step (median of "
             f"{ZOO_TIMED_STEPS} steps on one batch after {len(trained)} "
             f"training steps; first step {step_ms[0]:.1f} ms; host clock, "
@@ -1347,6 +1342,148 @@ def zoo_phase(torch, dev, card, kernels, root: Path, splits, widths=None):
     profile_span(torch, fn, f"one HGT train step (batch 1, {n_nodes} node "
                  f"slots)", card)
     return launches
+
+
+# ---------------------------------------------------------------------------
+# mil: the MIL bag baselines on the training cohort
+# ---------------------------------------------------------------------------
+MIL_RUNS = (("abmil", ()), ("dsmil", ("--remix-mode", "cov",
+                                      "--num-prototypes", "2")),
+            ("gtn", ("--hidden", "64", "--clusters", "100")))
+MIL_TIMED_STEPS = 5
+
+
+def mil_step_on_card_vs_cpu(torch, dev, kind, model, bag, edges, cap):
+    """One train_mil step from the same weights on the card, the CPU and
+    the CPU in float64: (loss relative error, grad_check's result)."""
+    import copy
+
+    from wsi_hgnn_tpu_torch import train_mil
+    from wsi_hgnn_tpu_torch.models.mil import pad_bag
+    from wsi_hgnn_tpu_torch.train.gradcheck import float64_default
+
+    feats, mask = pad_bag(bag, capacity=cap)
+
+    def step(m, device, dtype=torch.float32):
+        f = torch.from_numpy(feats).to(device, dtype)
+        msk = torch.from_numpy(mask).to(device)
+        if kind == "gtn":
+            opt = torch.optim.Adam(m.parameters(), lr=2e-4,
+                                   weight_decay=5e-4)
+            adj = train_mil.dense_adjacency(edges, cap, device).to(dtype)
+            return train_mil.gtn_train_step(m, opt, f[None], adj,
+                                            msk[None], 1)
+        opt = torch.optim.Adam(m.parameters(), lr=2e-4, betas=(0.5, 0.9),
+                               weight_decay=5e-3)
+        return train_mil.bag_train_step(m, opt, kind, 2, f, msk, 1)
+
+    def run64(m, device):
+        with float64_default():
+            step(m, device, torch.float64)
+
+    cpu = torch.device("cpu")
+    base64 = copy.deepcopy(model).double()
+    m_cpu, m_dev = copy.deepcopy(model), copy.deepcopy(model).to(dev)
+    l_cpu, l_dev = float(step(m_cpu, cpu)), float(step(m_dev, dev))
+    m64 = copy.deepcopy(base64)
+    run64(m64, cpu)
+    return (abs(l_dev - l_cpu) / abs(l_cpu),) + grad_check(
+        torch, m_cpu.named_parameters(), m_dev.named_parameters(),
+        m64.named_parameters(), run64, base64, dev)
+
+
+def mil_phase(torch, dev, card, kernels, root: Path, splits):
+    """`python -m wsi_hgnn_tpu_torch.train_mil` (in process, on the card)
+    over the training cohort's 12 slides as bags (their 1000-3000 x 1024
+    features, graphs built on the card), 2 folds and 2 epochs each, for
+    abmil, dsmil with ReMix 'cov' (2 prototypes: each prototype's shift
+    vectors are a 1024-d multivariate normal draw on the host) and gtn
+    (hidden 64, 100 clusters): finite summaries; then one step per model
+    on the card against the CPU (grad_check), ms per step on the card
+    and peak memory per model. Returns the launch counts of the runs."""
+    import math
+
+    import numpy as np
+
+    from wsi_hgnn_tpu_torch import convert, train_mil
+    from wsi_hgnn_tpu_torch.graph.typed_graph import bucket_size
+    from wsi_hgnn_tpu_torch.models import mil
+    from wsi_hgnn_tpu_torch.models.mil import pad_bag
+
+    t_phase = time.perf_counter()
+    names = [Path(p).stem for s in splits.values()
+             for p in Path(s).read_text().split()]
+    normals = set((root / "normal.txt").read_text().split())
+    rows = ["name,label"] + [f"{n},{int(n[:16] not in normals)}"
+                             for n in names]
+    (root / "mil_labels.csv").write_text("\n".join(rows) + "\n")
+    base = ["--feats-dir", str(root), "--labels", str(root / "mil_labels.csv"),
+            "--folds", "2", "--epochs", "2", "--seed", "0"]
+    bags, labels, _, coords = train_mil.load_bags(
+        str(root), str(root / "mil_labels.csv"))
+    check(len(bags) == 12 and sorted(np.bincount(labels)) == [6, 6],
+          f"{len(bags)} bags, classes {np.bincount(labels)}")
+    d = bags[0].shape[1]
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    results, failures = {}, []
+    for kind, extra in MIL_RUNS:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        summary = train_mil.main(["--model", kind, *base, *extra])
+        torch.cuda.synchronize()
+        took = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        check(all(math.isfinite(summary[k]) for k in (
+            "acc_mean", "f1_mean", "auc_mean")),
+              f"train_mil {kind} summary {summary}")
+        # the step alone, on the largest bag, at the run's capacity
+        big = int(np.argmax([len(b) for b in bags]))
+        if kind == "gtn":
+            model = mil.GraphTransformer(2, d, 64, 100)
+            cap = bucket_size(max(len(b) for b in bags), base=64)
+            edges = mil.spatial_adjacency(
+                [tuple(c) for c in train_mil.grid_coords(len(bags[big]))])
+        else:
+            model = (mil.ABMIL if kind == "abmil" else mil.DSMIL)(2, d)
+            cap = max(len(b) for b in bags)
+            edges = None
+        convert.init_flax_like_(model, 0)
+        rel, text, failed = mil_step_on_card_vs_cpu(
+            torch, dev, kind, model, bags[big], edges, cap)
+        if rel > 1e-5 or failed:
+            failures.append(f"{kind}: loss {rel}, gradients of {failed}")
+        m = model.to(dev)
+        f, msk = (torch.from_numpy(a).to(dev) for a in pad_bag(bags[big],
+                                                                 cap))
+        if kind == "gtn":
+            opt = torch.optim.Adam(m.parameters(), lr=2e-4, weight_decay=5e-4)
+            adj = train_mil.dense_adjacency(edges, cap, dev)
+            fn = lambda: train_mil.gtn_train_step(m, opt, f[None], adj,
+                                                  msk[None], 1)
+        else:
+            opt = torch.optim.Adam(m.parameters(), lr=2e-4,
+                                   betas=(0.5, 0.9), weight_decay=5e-3)
+            fn = lambda: train_mil.bag_train_step(m, opt, kind, 2, f, msk, 1)
+        step_ms = cuda_ms(fn, reps=MIL_TIMED_STEPS)
+        results[kind] = summary
+        sizes = [len(b) for b in bags]
+        log(f"mil {kind} (train_mil {' '.join(extra) or 'defaults'}; 12 bags "
+            f"of {min(sizes)}-{max(sizes)} x {d}, 2 folds x 2 epochs, "
+            f"capacity {cap}) in "
+            f"{took:.1f} s: acc {summary['acc_mean']:.4f} f1 "
+            f"{summary['f1_mean']:.4f} auc {summary['auc_mean']:.4f}; card vs "
+            f"CPU step loss rel err {rel:.3g} (<= 1e-5), {text}")
+        log(f"timing mil {kind}: {step_ms:.2f} ms per train step (CUDA "
+            f"events, mean of {MIL_TIMED_STEPS} on the {len(bags[big])}-"
+            f"instance bag), peak device memory of the k-fold run "
+            f"{peak:.2f} GiB [{card}]")
+    check(not failures, "card MIL steps differ from the CPU: "
+          + "; ".join(failures))
+    torch.cuda.synchronize()
+    log(f"mil phase took {time.perf_counter() - t_phase:.1f} s")
+    return kernels.launch_counts()
 
 
 # ---------------------------------------------------------------------------
@@ -1618,7 +1755,8 @@ def tile_build_phase(torch, dev, card, kernels, root: Path):
     least 1). Then each CNN on the card against the CPU on TILE_CHECK
     patches in f32 (relative L2 1e-3, 'hover' types equal), and the
     written bf16 features against the CPU's f32 (relative L2 0.1).
-    Returns the launch counts of the two constructions."""
+    Returns the launch counts of the two constructions and where the
+    slide, its tiles and its 'hover' graph are."""
     import os
 
     import numpy as np
@@ -1780,7 +1918,394 @@ def tile_build_phase(torch, dev, card, kernels, root: Path):
             "device busy share "
             + ("not measured" if busy is None else f"{busy:.3f}")
             + f" [{card}]")
-    return total
+    return total, {"slide": slide, "bag": bag,
+                   "image": root / "data" / "SYN" / "tumor" / f"{slide}.jpeg",
+                   "graph": root / "graphs_hover" / "heterogeneous"
+                   / f"{slide}.npz"}
+
+
+# ---------------------------------------------------------------------------
+# explain: main.py -mode graph_explain on tile_build's slide
+# ---------------------------------------------------------------------------
+# the annotation traces the third tissue ellipse of write_tissue_slide
+# (centre and radii as fractions of the slide's width and height)
+EXPLAIN_ELLIPSE = (0.50, 0.22, 0.24, 0.18)
+EXPLAIN_N = 2048            # nodes of the timed slide
+GNN_EXPLAINER_EPOCHS = 100  # the explainer's default
+
+
+def write_yaml(cfg, path: Path) -> None:
+    """A config of nested sections as the YAML subset config.py reads."""
+    def scalar(v):
+        if isinstance(v, str):
+            return f'"{v}"'
+        if isinstance(v, (list, tuple)):
+            return "[" + ", ".join(scalar(x) for x in v) + "]"
+        return repr(v)
+
+    def block(d, indent):
+        out = []
+        for k, v in d.items():
+            if isinstance(v, dict):
+                out.append(" " * indent + f"{k}:")
+                out += block(v, indent + 2)
+            else:
+                out.append(" " * indent + f"{k}: {scalar(v)}")
+        return out
+
+    path.write_text("\n".join(block(cfg, 0)) + "\n")
+
+
+def write_c16_layout(np, lay: Path, tiled, cfg) -> None:
+    """reference.csv (the slide a Tumor), the annotation XML (a 64-point
+    polygon on EXPLAIN_ELLIPSE, level-0 pixels), the eval list, and the
+    config's paths pointed there. eval.patch_size 128 places 256-px
+    level-0 tiles exactly: coordinates 128 * col // 2 = 64 * col at level
+    2, centres 4 * 64 * col + 128 at level 0 (the reference's 256 assumes
+    512-px level-0 tiles, cut at half the magnification)."""
+    slide = tiled["slide"]
+    (lay / "annotations").mkdir(parents=True)
+    w, h = TILE_SLIDE
+    cx, cy, rx, ry = EXPLAIN_ELLIPSE
+    t = np.linspace(0.0, 2 * np.pi, 64, endpoint=False)
+    coords = "".join(
+        f'<Coordinate Order="{i}" X="{(cx + rx * np.cos(a)) * w:.2f}" '
+        f'Y="{(cy + ry * np.sin(a)) * h:.2f}"/>' for i, a in enumerate(t))
+    (lay / "annotations" / f"{slide}.xml").write_text(
+        '<?xml version="1.0"?><ASAP_Annotations><Annotations>'
+        '<Annotation Name="Tumor" Type="Polygon"><Coordinates>' + coords
+        + "</Coordinates></Annotation></Annotations></ASAP_Annotations>")
+    (lay / "reference.csv").write_text(f"NAME,LABEL\n{slide},Tumor\n")
+    (lay / "eval.txt").write_text(f"{tiled['graph']}\n")
+    cfg["datasets"].update(
+        dataset="C16", patches_path=str(tiled["bag"].parent) + "/",
+        wsi_path=str(tiled["image"].parent) + "/",
+        eval_path=str(lay / "eval.txt"),
+        reference_csv=str(lay / "reference.csv"))
+    cfg["checkpoint"]["path"] = str(lay / "checkpoint")
+    cfg["eval"].update(explain_path=str(lay / "plots") + "/",
+                       annotation_path=str(lay / "annotations") + "/",
+                       patch_size=128)
+
+
+def auc_allowance(np, labels, scores, err: float) -> float:
+    """The AUC change that score errors up to `err` can make: the share of
+    (tumour, other) patch pairs whose scores lie within 2 err."""
+    labels, scores = np.asarray(labels), np.asarray(scores)
+    pos, neg = scores[labels == 1], scores[labels == 0]
+    if not len(pos) or not len(neg):
+        return 0.0
+    close = np.abs(pos[:, None] - neg[None, :]) <= 2 * err
+    return float(close.sum()) / close.size
+
+
+# the comparison layout: tile columns [10, 20) x rows [3, 13) of the slide,
+# across the annotation's lower edge
+EXPLAIN_WINDOW = (10, 20, 3, 13)
+# the checkpoint's output layer is scaled so that the tumour logit trails
+# the other by 3 on the window's graph: the loss (3.05) then moves with
+# every deletion, not only by f32 rounding near log 2
+EXPLAIN_MARGIN = -3.0
+SCORE_RTOL = 1e-4
+
+
+def write_window_layout(np, lay: Path, tiled, cfg, dev):
+    """The comparison layout: the tiles of EXPLAIN_WINDOW as a slide of
+    their own (tile files and the slide image linked, the annotation and
+    reference.csv of `cfg`'s layout), its graph built on the card from
+    the 'hover' features of those tiles standardised per dimension (so
+    nodes differ by O(1) in every feature, as trained features do, where
+    the seeded CNN's features differ in their last digits). Returns (the
+    layout's config, the slide's name)."""
+    import copy
+    import os
+
+    from wsi_hgnn_tpu_torch.data.datasets import save_graph_npz
+    from wsi_hgnn_tpu_torch.graph.build import build_graph
+    from wsi_hgnn_tpu_torch.pipeline.patches import list_patches
+
+    name = tiled["slide"].replace("-DX1", "-DX2")
+    c0, c1, r0, r1 = EXPLAIN_WINDOW
+    keep = []
+    for i, path in enumerate(list_patches(tiled["bag"])):
+        col, row = (int(v) for v in path.stem.split("_")[:2])
+        if c0 <= col < c1 and r0 <= row < r1:
+            keep.append(i)
+            (lay / "patches" / name).mkdir(parents=True, exist_ok=True)
+            os.symlink(path, lay / "patches" / name / path.name)
+    (lay / "wsi").mkdir()
+    os.symlink(tiled["image"], lay / "wsi" / f"{name}.jpeg")
+    with np.load(tiled["graph"]) as z:
+        feat = z["feat"][keep].astype(np.float64)
+        types = z["node_type"][keep]
+    feat = ((feat - feat.mean(0)) / np.maximum(feat.std(0), 1e-6)
+            ).astype(np.float32)
+    het, _ = build_graph(feat, types, RADIUS, N_TYPES, knn_impl="pallas",
+                         device=dev)
+    n, e = len(keep), int(np.asarray(het.edge_mask).sum())
+    save_graph_npz(lay / f"{name}.npz", feat, np.asarray(het.src)[:e],
+                   np.asarray(het.dst)[:e], node_type=types,
+                   esign=np.asarray(het.esign)[:e],
+                   sim=np.asarray(het.sim)[:e], n_node_types=N_TYPES)
+    (lay / "eval.txt").write_text(f"{lay / f'{name}.npz'}\n")
+    ann = Path(cfg["eval"]["annotation_path"])
+    os.symlink(ann / f"{tiled['slide']}.xml", ann / f"{name}.xml")
+    with open(cfg["datasets"]["reference_csv"], "a") as f:
+        f.write(f"{name},Tumor\n")
+    win = copy.deepcopy(cfg)
+    win["datasets"].update(patches_path=str(lay / "patches") + "/",
+                           wsi_path=str(lay / "wsi") + "/",
+                           eval_path=str(lay / "eval.txt"))
+    win["eval"]["explain_path"] = str(lay / "plots") + "/"
+    return win, name, n
+
+
+def scores_over(np, got, want, atol: float):
+    """The largest |got - want| / (SCORE_RTOL |want| + atol)."""
+    return float((np.abs(got - want) / (SCORE_RTOL * np.abs(want) + atol)
+                  ).max())
+
+
+def explain_phase(torch, dev, card, kernels, root: Path, tiled):
+    """`python -m wsi_hgnn_tpu_torch.main -mode graph_explain` (in process,
+    on the card) over tile_build's slide laid out as a Camelyon16 test
+    set, with configs/BRCA/HEAT4_kimia_classification.yml at its width
+    (HetGemExplainer, the shipped setting) from a version-1 checkpoint of
+    seeded weights, its output layer scaled (EXPLAIN_MARGIN): the AUC
+    finite, both heatmaps written, a second explanation of the slide
+    giving the same AUC.
+    The card against the CPU on the smaller comparison layout
+    (write_window_layout), ExplainGraph.eval (what main.py runs) on each:
+    the scores within SCORE_RTOL relative L2 of the CPU's and, each,
+    within SCORE_RTOL of it plus an atol of 2 GRAD_F32 times the f32
+    rounding that randomly rounded float64 explanations show
+    (gradcheck.output_spread; card and CPU each round), that atol under a
+    hundredth of the median score, all-zero and sign-flipped scores
+    failing the same check, the AUCs equal.
+    Then timings on a seeded 2048-node slide graph built on the card:
+    HetGemExplainer on HEAT4, GemExplainer on GCN at its BRCA width, a
+    100-step GNNExplainer on HEAT4; ms per slide, peak memory, and the
+    device busy share of the 586-node explanation. Returns the launch
+    counts of the phase."""
+    import copy
+
+    import numpy as np
+
+    from wsi_hgnn_tpu_torch import convert
+    from wsi_hgnn_tpu_torch.config import load_config, parse_gnn_model
+    from wsi_hgnn_tpu_torch.data.datasets import load_graph_npz
+    from wsi_hgnn_tpu_torch.explain import (ExplainGraph, GemExplainer,
+                                            GNNExplainer, HetGemExplainer)
+    from wsi_hgnn_tpu_torch.graph.build import build_batch_device
+    from wsi_hgnn_tpu_torch.graph.typed_graph import to_homogeneous
+    from wsi_hgnn_tpu_torch.main import main as port_main
+    from wsi_hgnn_tpu_torch.train import gradcheck
+    from wsi_hgnn_tpu_torch.train.checkpoint import CheckpointManager
+    from wsi_hgnn_tpu_torch.train.metrics import binary_auc_from_scores
+    from wsi_hgnn_tpu_torch.utils import to_torch
+
+    t_phase = time.perf_counter()
+    slide, lay = tiled["slide"], root / "c16"
+    cfg = load_config(ROOT / HEAT4_CONFIG)
+    write_c16_layout(np, lay, tiled, cfg)
+    g = cfg["GNN"]
+    check(cfg["eval"]["explainer_name"] == "GemExplainer"
+          and g["name"] == "HEAT4" and g["in_dim"] == 1024
+          and g["hidden_dim"] == 512 and g["n_heads"] == 4
+          and g["num_layers"] == 2 and g["n_node_types"] == N_TYPES,
+          f"{HEAT4_CONFIG} is not the config this phase states: {g}")
+    knn0 = kernels.launch_counts()["knn_l2_fused"]
+    win_cfg, win, n_win = write_window_layout(np, lay / "window", tiled, cfg,
+                                              dev)
+    check(kernels.launch_counts()["knn_l2_fused"] - knn0 == 1,
+          "the comparison graph was not built by the KNN kernel")
+    model, _ = parse_gnn_model(g)
+    convert.init_flax_like_(model, 9).eval()
+    g_win = load_graph_npz(lay / "window" / f"{win}.npz").to_torch(
+        torch.device("cpu"))
+    with torch.no_grad():
+        z = model(g_win.replace(esign=torch.ones_like(g_win.esign)))[0]
+        scale = EXPLAIN_MARGIN / float(z[1] - z[0])
+        model.head.weight.mul_(scale)
+        model.head.bias.mul_(scale)
+    variables = convert.to_flax_variables(model)
+    CheckpointManager(cfg["checkpoint"]["path"]).write_new_version(
+        cfg, {"params": variables["params"], "batch_stats": {}}, {"Epoch": 1})
+    write_yaml(cfg, lay / "explain.yml")
+
+    # ---- the main path: counters from 0 -------------------------------
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    aucs = port_main(["-config", str(lay / "explain.yml"), "-mode",
+                      "graph_explain"])
+    torch.cuda.synchronize()
+    t_main = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    plots = [lay / "plots" / f"{slide}{ext}" for ext in (".png", ".jpeg")]
+    check(len(aucs) == 1 and np.isfinite(aucs[0]),
+          f"graph_explain AUCs {aucs}: want one finite")
+    check(all(p.is_file() and p.stat().st_size for p in plots),
+          f"heatmaps not written: {plots}")
+    eg = ExplainGraph(cfg, device=dev)
+    graph, _, label = eg.eval_data[0]
+    g_dev = graph.to_torch(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s_main = eg.explain_one(g_dev, label)
+    torch.cuda.synchronize()
+    slide_ms = (time.perf_counter() - t0) * 1e3
+    coords = eg.get_patch_coords(slide)
+    labels, _ = eg.get_ground_truths(eg.eval_data.xml_paths[0], coords)
+    check(len(coords) == graph.node_mask.sum() == len(s_main),
+          f"{len(coords)} patches, {int(graph.node_mask.sum())} nodes, "
+          f"{len(s_main)} scores")
+
+    # ---- the card against the CPU on the comparison layout ------------
+    cpu_cfg = copy.deepcopy(win_cfg)
+    cpu_cfg["GNN"]["typed_impl"] = "ragged"   # the same function
+    cpu_cfg["eval"]["explain_path"] = str(lay / "window" / "plots_cpu") + "/"
+    runs = []
+    for where, c in ((dev, win_cfg), (torch.device("cpu"), cpu_cfg)):
+        t0 = time.perf_counter()
+        e = ExplainGraph(c, device=where)
+        runs.append((e.eval(), e.last_scores[win],
+                     time.perf_counter() - t0, e))
+    (auc_dev, s_dev, t_dev, e_dev), (auc_cpu, s_cpu, t_cpu, _) = runs
+    # f32 rounding of a score, from randomly rounded float64 explanations
+    # of the window on the card; card and CPU each round
+    m64 = copy.deepcopy(e_dev.model).double()
+    g64 = g_win.to_torch(dev)
+    g64 = g64.replace(feat=g64.feat.double(), sim=g64.sim.double())
+
+    def explain64():
+        return HetGemExplainer(g64, m64, 1).flat_scores()
+
+    t0 = time.perf_counter()
+    with gradcheck.float64_default():
+        s64 = explain64()
+    spread = gradcheck.output_spread(explain64, s64, device=dev)
+    t64 = time.perf_counter() - t0
+    atol = 2 * gradcheck.GRAD_F32 * spread
+    typical = float(np.median(np.abs(s_cpu)))
+    over = scores_over(np, s_dev, s_cpu, atol)
+    over_zero = scores_over(np, np.zeros_like(s_cpu), s_cpu, atol)
+    over_flip = scores_over(np, -s_cpu, s_cpu, atol)
+    rel = float(np.linalg.norm(s_dev - s_cpu) / np.linalg.norm(s_cpu))
+    err = float(np.abs(s_dev - s_cpu).max())
+    w_coords = e_dev.get_patch_coords(win)
+    w_labels, _ = e_dev.get_ground_truths(e_dev.eval_data.xml_paths[0],
+                                          w_coords)
+    allow = auc_allowance(np, w_labels, s_cpu, err)
+    check(len(s_cpu) == len(s_dev) == n_win == len(w_coords),
+          f"{len(s_cpu)} CPU and {len(s_dev)} card scores, {n_win} nodes")
+    check(0 < atol <= 1e-2 * typical, f"atol {atol} is not small next to "
+          f"the median score {typical}: the check could not fail wrong "
+          f"scores")
+    check(over_zero > 1.0 and over_flip > 1.0,
+          f"zero scores ({over_zero}) or sign-flipped scores ({over_flip}) "
+          f"pass the score check")
+    check(rel <= SCORE_RTOL and over <= 1.0,
+          f"card HetGEM scores vs CPU: rel L2 {rel}, largest error over "
+          f"rtol {SCORE_RTOL:g} + atol {atol:.3g} is {over} (max abs {err})")
+    check(0 < sum(w_labels) < len(w_labels)
+          and abs(auc_dev[0] - auc_cpu[0]) <= allow,
+          f"pixel AUC {auc_dev[0]} on the card, {auc_cpu[0]} on the CPU "
+          f"(allowance {allow}; {sum(w_labels)} of {len(w_labels)} patches "
+          f"inside the annotation)")
+    log(f"explain ({HEAT4_CONFIG}: HEAT4 in 1024 hidden 512 heads 4 layers "
+        f"2, seeded version-1 checkpoint, output layer x {scale:.6g}; "
+        f"HetGemExplainer): main.py -mode graph_explain on {slide} "
+        f"({len(coords)} patches, {int(sum(labels))} inside the annotation) "
+        f"in {t_main:.2f} s: pixel AUC {aucs[0]:.6f}, heatmaps "
+        f"{[p.name for p in plots]}; launches {launches} [{card}]")
+    c0, c1, r0, r1 = EXPLAIN_WINDOW
+    log(f"explain card vs CPU (ExplainGraph.eval on {win}: tile columns "
+        f"{c0}-{c1 - 1} x rows {r0}-{r1 - 1} of the slide, {n_win} nodes, "
+        f"{sum(w_labels)} inside the annotation, standardised 'hover' "
+        f"features, graph built on the card): pixel AUC {auc_dev[0]:.6f} "
+        f"on the card in {t_dev:.2f} s, {auc_cpu[0]:.6f} on the CPU in "
+        f"{t_cpu:.2f} s (|diff| <= {allow:.3g}); median |score| "
+        f"{typical:.4g}; scores card vs CPU: rel L2 {rel:.3g} (<= "
+        f"{SCORE_RTOL:g}), max abs {err:.3g}, card vs float64 max abs "
+        f"{float(np.abs(s_dev - s64).max()):.3g}, CPU vs float64 "
+        f"{float(np.abs(s_cpu - s64).max()):.3g}; largest error over rtol "
+        f"{SCORE_RTOL:g} + atol {atol:.3g} (2 x {gradcheck.GRAD_F32:g} x "
+        f"{spread:.3g}, the largest change {gradcheck.DRAWS} randomly "
+        f"rounded float64 explanations on the card made, {t64:.2f} s; "
+        f"{atol / typical:.3g} of the median score) {over:.3g} (<= 1); "
+        f"the same check on all-zero scores {over_zero:.4g}, on "
+        f"sign-flipped scores {over_flip:.4g} (both must exceed 1) [{card}]")
+
+    # ---- timings on a 2048-node slide ----------------------------------
+    rng = np.random.RandomState(31)
+    feat = rng.randn(1, EXPLAIN_N, 1024).astype(np.float32)
+    types = rng.randint(0, N_TYPES, (1, EXPLAIN_N))
+    real = torch.ones(1, EXPLAIN_N, dtype=torch.bool, device=dev)
+    knn0 = kernels.launch_counts()["knn_l2_fused"]
+    typed = build_batch_device(to_torch(feat, dev), to_torch(types, dev),
+                               real, RADIUS, N_TYPES)
+    homo = to_homogeneous(build_batch_device(
+        to_torch(feat, dev), to_torch(types, dev), real, RADIUS, N_TYPES,
+        add_self_loops=True))
+    check(kernels.launch_counts()["knn_l2_fused"] - knn0 == 2,
+          "the timed slide's graphs were not built by the KNN kernel")
+    gcn, _ = parse_gnn_model(load_config(
+        ROOT / "configs/BRCA/GCN_kimia_classification.yml")["GNN"])
+    gcn = convert.init_flax_like_(gcn, 4).to(dev).eval()
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return ((time.perf_counter() - t) * 1e3,
+                torch.cuda.max_memory_allocated() / 2 ** 30, out)
+
+    rows = {
+        "HetGemExplainer, HEAT4": timed(lambda: HetGemExplainer(
+            typed, eg._model_fn, 1).flat_scores()),
+        "GemExplainer, GCN (BRCA: in 1024 hidden 256 layers 3)": timed(
+            lambda: GemExplainer(homo, lambda x: gcn(x), 1).explain_node()),
+        f"GNNExplainer ({GNN_EXPLAINER_EPOCHS} Adam steps), HEAT4": timed(
+            lambda: GNNExplainer(typed, eg._model_fn, 1,
+                                 epochs=GNN_EXPLAINER_EPOCHS,
+                                 model=eg.model).explain_node(None)[1]),
+    }
+    for name, (ms, gib, out) in rows.items():
+        check(np.isfinite(out).all() and len(out) == EXPLAIN_N,
+              f"{name}: {len(out)} scores, finite {np.isfinite(out).all()}")
+    again = []
+    busy = profile_span(torch, lambda: again.append(eg.explain_one(g_dev,
+                                                                   label)),
+                        f"HetGemExplainer on {slide} ({len(coords)} nodes)",
+                        card, top=6)
+    # main.py's AUC against the timed explanation's: equal but for the
+    # (tumour, other) pairs whose scores lie within what two runs on the
+    # card differ by (index_add_'s atomics sum in any order)
+    noise = float(np.abs(again[0] - s_main).max())
+    auc_main = binary_auc_from_scores(np.asarray(labels), s_main)
+    check(abs(auc_main - aucs[0]) <= auc_allowance(np, labels, s_main, noise),
+          f"main.py's AUC {aucs[0]} and the card's second explanation's "
+          f"{auc_main} differ by more than the pairs within twice the "
+          f"run-to-run score difference {noise} can swap")
+    log(f"explain: the card's second and third explanations of {slide} "
+        f"differ by up to {noise:.3g} (median |score| "
+        f"{float(np.median(np.abs(s_main))):.4g}); AUC {auc_main:.6f} against "
+        f"main.py's {aucs[0]:.6f} [{card}]")
+    log(f"timing explain: {slide_ms:.1f} ms for the {len(coords)}-node slide "
+        f"(HetGemExplainer, HEAT4), peak device memory of main.py's run "
+        f"{peak:.2f} GiB, device busy share "
+        + ("not measured" if busy is None else f"{busy:.3f}")
+        + f"; on a seeded {EXPLAIN_N}-node slide (KNN graph built on the "
+        "card): " + "; ".join(f"{name} {ms:.1f} ms, peak {gib:.2f} GiB"
+                              for name, (ms, gib, _) in rows.items())
+        + f" [{card}]")
+    log(f"explain phase took {time.perf_counter() - t_phase:.1f} s")
+    return launches
 
 
 def main() -> int:
@@ -1807,6 +2332,7 @@ def main() -> int:
     from wsi_hgnn_tpu_torch.ops import knn as knn_ops
     from wsi_hgnn_tpu_torch.utils import set_cuda_numerics
 
+    t_start = time.perf_counter()
     card = card_line()
     log(card)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -1848,25 +2374,33 @@ def main() -> int:
 
     def training(root):
         trained, splits = train_phase(torch, dev, card, kernels, root)
-        return trained, zoo_phase(torch, dev, card, kernels, root, splits)
+        return (trained, zoo_phase(torch, dev, card, kernels, root, splits),
+                mil_phase(torch, dev, card, kernels, root, splits))
+
+    def building(root):
+        constructed = construct_phase(torch, dev, card, kernels, root)
+        tiled, layout = tile_build_phase(torch, dev, card, kernels, root)
+        return (constructed, tiled, explain_phase(
+            torch, dev, card, kernels, root, layout))
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         for name, group in (
                 ("serving", serving),
-                ("construction", lambda r: (
-                    construct_phase(torch, dev, card, kernels, r),
-                    tile_build_phase(torch, dev, card, kernels, r))),
+                ("construction", building),
                 ("training", training)):
             root = Path(tmp) / name
             root.mkdir()
+            t0 = time.perf_counter()
             try:
                 counts += group(root)
+                log(f"{name} phases took {time.perf_counter() - t0:.1f} s")
             except CheckFailed as e:
                 failures.append(f"{name}: {e}")
                 log(f"chip_smoke: {name} phases FAILED: {e}")
     if failures:
         raise CheckFailed("; ".join(failures))
     launches = {k: sum(c[k] for c in counts) for k in counts[0]}
+    log(f"chip_smoke: all phases in {time.perf_counter() - t_start:.1f} s")
 
     # library_ms is null: no single PyTorch call computes any of the three
     # functions (a top-k KNN, or a fused affine + GEMM + conv / pool chain)

@@ -127,8 +127,13 @@ def test_entry_points_never_fall_back_to_cpu(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main.main(["-config", str(ROOT / "configs/BRCA/"
                                   "HEAT4_kimia_classification.yml")])
-    with pytest.raises(NotImplementedError, match="item 12"):
-        main.main(["-mode", "graph_explain", "-device", "cpu"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        main.main(["-mode", "graph_explain"])
+    from wsi_hgnn_tpu_torch import train_mil
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_mil.main(["--model", "abmil", "--feats-dir", str(tmp_path),
+                        "--labels", str(tmp_path / "labels.csv")])
     # a model neither package implements raises before any weights load
     with pytest.raises(NotImplementedError, match="not implemented"):
         SlidePredictor({"GNN": dict(GNN, name="GraphSAGE")}, variables={},
@@ -154,18 +159,26 @@ def test_chip_smoke_fails_without_a_card(tmp_path):
 
 def test_port_imports_no_jax():
     """Every module of the port (found by walking the package, so new
-    ones are covered) imports without pulling in JAX, Flax, optax, the
-    JAX package, PyYAML or msgpack."""
+    ones are covered) and chip_smoke.py import without pulling in JAX,
+    Flax, optax, the JAX package, PyYAML, msgpack, or cv2 and matplotlib
+    (absent on the card machine)."""
     code = ("import importlib, pkgutil, sys, wsi_hgnn_tpu_torch as p;"
             " names = [m.name for m in pkgutil.walk_packages(p.__path__,"
             " 'wsi_hgnn_tpu_torch.')];"
-            " [importlib.import_module(n) for n in names];"
+            " [importlib.import_module(n) for n in names + ['chip_smoke']];"
             " assert {'wsi_hgnn_tpu_torch.pipeline.tiler',"
             " 'wsi_hgnn_tpu_torch.get_patches', 'wsi_hgnn_tpu_torch.native',"
             " 'wsi_hgnn_tpu_torch.models.featurizers.efficientnet',"
-            " 'wsi_hgnn_tpu_torch.models.featurizers.effnetv2'} <= set(names);"
+            " 'wsi_hgnn_tpu_torch.models.featurizers.effnetv2',"
+            " 'wsi_hgnn_tpu_torch.explain', 'wsi_hgnn_tpu_torch.explain.gem',"
+            " 'wsi_hgnn_tpu_torch.explain.gnn_explainer',"
+            " 'wsi_hgnn_tpu_torch.explain.explain_graphs',"
+            " 'wsi_hgnn_tpu_torch.models.mil',"
+            " 'wsi_hgnn_tpu_torch.models.mil.graph_transformer',"
+            " 'wsi_hgnn_tpu_torch.train_mil'} <= set(names);"
             " bad = [m for m in sys.modules if m.split('.')[0] in"
-            " ('jax', 'flax', 'optax', 'wsi_hgnn_tpu', 'yaml', 'msgpack')];"
+            " ('jax', 'flax', 'optax', 'wsi_hgnn_tpu', 'yaml', 'msgpack',"
+            " 'cv2', 'matplotlib')];"
             " assert not bad, bad")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)

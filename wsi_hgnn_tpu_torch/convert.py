@@ -10,6 +10,7 @@ leaf maps by the kind of module that owns it:
   nn.Linear        weight [out, in]   <- kernel [in, out]
   nn.BatchNorm2d   weight, bias       <- params scale, bias
                    running_mean/var   <- batch_stats mean, var
+  nn.LayerNorm     weight, bias       <- params scale, bias
   a module with a  its leaves in the named collection (MaskedBatchNorm's
   flax_collections   buffers mean, var <- batch_stats mean, var)
   map
@@ -18,12 +19,16 @@ leaf maps by the kind of module that owns it:
                                        HEAT's skip [T], GAT's attn_l/r
                                        [1, H, F], GIN's scalar eps, HGT's
                                        relation_att/msg/pri, per-type
-                                       LayerNorm scale/bias [T, d])
+                                       LayerNorm scale/bias [T, d], DSMIL's
+                                       fcc_kernel [C, C, V], GTN's
+                                       cls_token)
 
 `init_flax_like_` draws a module's weights from a seed with flax's
 default initialisers (lecun-normal kernels, xavier-uniform HGT relation
 tensors, xavier-normal GAT attention vectors, zero biases, BN 1/0/0/1),
-so a run without weight files starts where a flax run would.
+so a run without weight files starts where a flax run would (DSMIL's
+fcc_kernel, whose flax initialiser takes its fan-in over the last two
+axes, included).
 """
 from __future__ import annotations
 
@@ -43,6 +48,8 @@ def _leaf(owner: nn.Module, leaf: str) -> Tuple[str, str]:
     """(collection, flax leaf name) of a torch leaf."""
     if isinstance(owner, nn.BatchNorm2d):
         return _BN[leaf]
+    if isinstance(owner, nn.LayerNorm):
+        return "params", {"weight": "scale"}.get(leaf, leaf)
     coll = getattr(owner, "flax_collections", {}).get(leaf)
     if coll is not None:
         return coll, leaf
@@ -187,7 +194,7 @@ def init_flax_like_(module: nn.Module, seed: int) -> nn.Module:
     for owner, _, leaf, t in _leaves(module):
         name = _leaf(owner, leaf)[1]
         if name not in ("kernel", "relation_att", "relation_msg", "attn_l",
-                        "attn_r"):
+                        "attn_r", "fcc_kernel"):
             t.fill_(1.0 if name in _ONES else 0.0)
             continue
         # fans from the flax layout; the draw is in the torch layout
@@ -195,6 +202,9 @@ def init_flax_like_(module: nn.Module, seed: int) -> nn.Module:
             owner, leaf, np.empty(t.shape, np.uint8)).shape)
         if name == "kernel":
             t.copy_(trunc_normal(t.shape, math.sqrt(1.0 / fan_in), gen))
+        elif name == "fcc_kernel":   # variance_scaling, in_axis=(-2, -1)
+            t.copy_(trunc_normal(t.shape, math.sqrt(
+                1.0 / (t.shape[-2] * t.shape[-1])), gen))
         elif name in ("relation_att", "relation_msg"):
             limit = math.sqrt(6.0 / (fan_in + fan_out))
             t.copy_((torch.rand(t.shape, generator=gen) * 2.0 - 1.0) * limit)

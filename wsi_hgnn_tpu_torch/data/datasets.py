@@ -10,10 +10,14 @@ Label extraction matches the reference byte for byte:
   * classification: TCGA barcode slice s[pos:pos+16] against a normal-list
     file;
   * staging: s[pos:pos+12] -> 'Stage I..IV' table, tab-separated;
-  * typing: ESCA comma-separated int labels, BRCA ductal/lobular.
+  * typing: ESCA comma-separated int labels, BRCA ductal/lobular;
+  * Camelyon16 explanation: the tumour slides of a list, each with its
+    annotation XML.
 """
 from __future__ import annotations
 
+import os
+from pathlib import Path
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -173,3 +177,32 @@ class TCGACancerTypingDataset:
 
     def __getitem__(self, index):
         return load_graph_npz(self.graph_paths[index]), self.label_of(index)
+
+
+class C16EvalDataset:
+    """Camelyon16 explanation eval: the list's tumour slides (label 1
+    unless `reference_csv`, a NAME,LABEL table, says Normal), each paired
+    with `<annot_path>/<name>.xml`."""
+
+    def __init__(self, graph_path, annot_path, reference_csv):
+        import csv
+
+        labels = {}
+        with open(reference_csv) as f:
+            for row in csv.DictReader(f):
+                labels[row["NAME"]] = row["LABEL"]
+        self.graph_paths, self.labels, self.xml_paths = [], [], []
+        for a in _read_list(graph_path):
+            name = os.path.split(a)[1][:-4]
+            label = 0 if labels.get(name) == "Normal" else 1
+            if label == 1:
+                self.graph_paths.append(a)
+                self.labels.append(label)
+                self.xml_paths.append(str(Path(annot_path) / (name + ".xml")))
+
+    def __len__(self):
+        return len(self.graph_paths)
+
+    def __getitem__(self, index):
+        return (load_graph_npz(self.graph_paths[index]),
+                self.xml_paths[index], self.labels[index])

@@ -46,6 +46,11 @@ class TypedGraph:
     # edges sorted by dst*(ET*T) + esign*T + src_type, padding edges last
     # (graph.batch.sort_graph_edges)
     edges_sorted: bool = False
+    # relation and node-type occupancy counted per graph of the batch
+    # instead of over the whole batch (as DGL's batched multi_update_all
+    # counts it in training), so a flat batch of B graphs computes what B
+    # single forwards compute: the explainers' leave-one-out batches
+    per_graph_occupancy: bool = False
 
     def replace(self, **changes) -> "TypedGraph":
         return dataclasses.replace(self, **changes)

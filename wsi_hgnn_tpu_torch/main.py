@@ -1,7 +1,9 @@
-"""Train / evaluate entry point of the port, mirroring the root main.py:
+"""Train / evaluate / explain entry point of the port, mirroring the root
+main.py:
 
   python -m wsi_hgnn_tpu_torch.main -config configs/BRCA/HEAT4_kimia_classification.yml -seed 611
   python -m wsi_hgnn_tpu_torch.main -config ... -mode eval
+  python -m wsi_hgnn_tpu_torch.main -config ... -mode graph_explain
   python -m wsi_hgnn_tpu_torch.main -config ... -device cpu   # the CPU (tests)
 
 Runs on the card unless `-device cpu` is given; without a card it raises.
@@ -46,9 +48,9 @@ def main(argv=None):
         from .train import HomoGraphEvaluator
 
         return HomoGraphEvaluator(config, device=args.device).eval()
-    raise NotImplementedError(
-        "graph_explain needs the explainers, not ported yet (ROADMAP.md "
-        "item 12)")
+    from .explain import ExplainGraph
+
+    return ExplainGraph(config, device=args.device).eval()
 
 
 if __name__ == "__main__":

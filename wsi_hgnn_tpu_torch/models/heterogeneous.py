@@ -9,7 +9,9 @@ DGL semantics kept exactly:
   * node types with no incoming relation pass their features through;
   * node types with no node in the batch add nothing to the pooled sum.
 Occupancy is over the graph the model is given: the whole batch in
-training, one slide at a time in evaluation and serving.
+training, one slide at a time in evaluation and serving. A graph with
+`per_graph_occupancy` set has each graph of its flat batch count its own,
+so the batch computes what one forward per graph computes.
 
 `forward(g, drops=None)` returns logits [n_graphs, out_dim]; training-mode
 dropout takes its masks from `drops` (layers.DropSource). The HEAT models
@@ -19,7 +21,7 @@ checkpoint of either path loads into the other.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -31,18 +33,43 @@ from .layers import (DropSource, LinearAttentionBlock, TypedDense, TypedHeads,
                      TypedLayerNorm, dropout, pool_all_types)
 
 
-def _presence(g: TypedGraph):
-    """(present_rel [R] bool, dst_denom [T], src_denom [T] in the
-    features' float type, type_present [T] bool): relation and node-type
-    occupancy of g."""
-    t = g.n_node_types
-    present = g.rel_edge_counts() > 0
-    rel_ids = torch.arange(g.n_relations, device=present.device)
+class Presence(NamedTuple):
+    """Relation and node-type occupancy of a graph, over the whole batch
+    (G = 1 row) or per graph (G = n_graphs rows)."""
+
+    present: torch.Tensor       # [G, R] bool: the relation has an edge
+    dst_denom: torch.Tensor     # [G, T] present relations into each type
+    src_denom: torch.Tensor     # [G, T] present relations out of each type
+    type_present: torch.Tensor  # [G, T] bool: the type has a node
+    row: torch.Tensor           # [N] each node's row of the [G * T] tables
+
+
+def _presence(g: TypedGraph) -> Presence:
+    """Occupancy of g in the features' float type: over the whole
+    (batched) graph, or per graph where g.per_graph_occupancy is set."""
+    t, r = g.n_node_types, g.n_relations
+    if g.per_graph_occupancy:
+        seg = ops.gather(g.node_graph, g.src) * r + g.edge_rel()
+        counts = torch.zeros(g.n_graphs * r, dtype=torch.long,
+                             device=seg.device).index_add_(
+            0, seg, g.edge_mask.long())
+        present = counts.reshape(g.n_graphs, r) > 0
+        types = g.node_type_counts().reshape(g.n_graphs, t) > 0
+        row = g.node_graph * t + g.node_type
+    else:
+        present = (g.rel_edge_counts() > 0)[None]
+        types = (g.node_type_counts().reshape(g.n_graphs, t).sum(0) > 0)[None]
+        row = g.node_type
+    rel_ids = torch.arange(r, device=present.device)
     pf = present.to(g.feat.dtype)
-    dst_denom = ops.segment_sum(pf, rel_ids % t, t)
-    src_denom = ops.segment_sum(pf, (rel_ids // t) % t, t)
-    counts = g.node_type_counts().reshape(g.n_graphs, t).sum(0)
-    return present, dst_denom, src_denom, counts > 0
+    dst_denom = pf @ F.one_hot(rel_ids % t, t).to(pf.dtype)
+    src_denom = pf @ F.one_hot((rel_ids // t) % t, t).to(pf.dtype)
+    return Presence(present, dst_denom, src_denom, types, row)
+
+
+def _per_node(table: torch.Tensor, p: Presence) -> torch.Tensor:
+    """A [G, T] occupancy table read at each node's row."""
+    return ops.gather(table.reshape(-1), p.row)
 
 
 def _skip_mix(h_new, h_old, alpha, node_type, has_update, node_mask):
@@ -74,16 +101,21 @@ class HetRGCNLayer(nn.Module):
         if g.n_relations != self.kernel.shape[0]:
             raise ValueError(f"graph has {g.n_relations} relations, the "
                              f"layer {self.kernel.shape[0]}")
-        present, _, src_denom, _ = _presence(g)
+        p = _presence(g)
         rel_ids = torch.arange(g.n_relations, device=h.device)
-        onehot = F.one_hot((rel_ids // t) % t, t).to(h.dtype) \
-            * present.to(h.dtype)[:, None]                       # [R, T]
-        denom = src_denom.clamp_min(1.0)
-        w_eff = torch.einsum("rt,rdf->tdf", onehot, self.kernel) \
-            / denom[:, None, None]
-        b_eff = torch.einsum("rt,rf->tf", onehot, self.bias) / denom[:, None]
-        out = ops.typed_linear(h, g.node_type, w_eff, b_eff)
-        has_update = ops.gather(src_denom > 0, g.node_type)
+        onehot = F.one_hot((rel_ids // t) % t, t).to(h.dtype)[None] \
+            * p.present.to(h.dtype)[:, :, None]                  # [G, R, T]
+        denom = p.src_denom.clamp_min(1.0)
+        w_eff = torch.einsum("grt,rdf->gtdf", onehot, self.kernel) \
+            / denom[:, :, None, None]
+        b_eff = torch.einsum("grt,rf->gtf", onehot, self.bias) \
+            / denom[:, :, None]
+        if w_eff.shape[0] == 1:
+            out = ops.typed_linear(h, g.node_type, w_eff[0], b_eff[0])
+        else:   # one (graph, type) row per node: one product per row
+            out = ops.typed_linear_ragged(h, p.row, w_eff.flatten(0, 1),
+                                          b_eff.flatten(0, 1))
+        has_update = _per_node(p.src_denom > 0, p)
         return torch.where((has_update & g.node_mask)[:, None], out, h)
 
 
@@ -106,13 +138,13 @@ class HetRGCN(nn.Module):
                 t, n_edge_types, hidden_dim, hidden_dim))
 
     def forward(self, g: TypedGraph, drops: Optional[DropSource] = None):
-        pres = _presence(g)[3].to(g.feat.dtype)
+        pres = _presence(g).type_present.to(g.feat.dtype)
         h = F.gelu(self.adapt_ws(g.feat, g.node_type))
         hg = g.feat.new_zeros(g.n_graphs, self.out_dim)
         for i in range(self.n_layers):
             pooled = pool_all_types(g, h, self.graph_pooling_type)
             heads = getattr(self, f"pred_{i}")(pooled)
-            hg = hg + (heads * pres[None, :, None]).sum(1)
+            hg = hg + (heads * pres[:, :, None]).sum(1)
             h = getattr(self, f"layer_{i}")(g, h)
         return hg
 
@@ -179,10 +211,10 @@ class HGTLayer(nn.Module):
         agg = ops.copy_e_sum(g, v_e * attn[:, :, None]).reshape(-1,
                                                                self.out_dim)
 
-        _, dst_denom, _, _ = _presence(g)
-        t_agg = agg / ops.gather(dst_denom.clamp_min(1.0), nt)[:, None]
+        p = _presence(g)
+        t_agg = agg / _per_node(p.dst_denom.clamp_min(1.0), p)[:, None]
         trans = dropout(self, drops, self.a_linears(t_agg, nt), self.dropout)
-        has_update = ops.gather(dst_denom > 0, nt)
+        has_update = _per_node(p.dst_denom > 0, p)
         out = _skip_mix(trans, h, self.skip, nt, has_update, g.node_mask)
         if self.use_norm:
             keep = (has_update & g.node_mask)[:, None]
@@ -210,13 +242,13 @@ class HGT(nn.Module):
                 t, hidden_dim, hidden_dim, n_heads, use_norm=use_norm))
 
     def forward(self, g: TypedGraph, drops: Optional[DropSource] = None):
-        pres = _presence(g)[3].to(g.feat.dtype)
+        pres = _presence(g).type_present.to(g.feat.dtype)
         h = F.gelu(self.adapt_ws(g.feat, g.node_type))
         hg = g.feat.new_zeros(g.n_graphs, self.out_dim)
         for i in range(self.n_layers):
             pooled = pool_all_types(g, h, self.graph_pooling_type)
             heads = getattr(self, f"pred_{i}")(pooled)
-            hg = hg + (heads * pres[None, :, None]).sum(1)
+            hg = hg + (heads * pres[:, :, None]).sum(1)
             h = getattr(self, f"gcs_{i}")(g, h, drops)
         return hg
 
@@ -254,12 +286,12 @@ class HEATLayer(nn.Module):
         attn = ops.edge_softmax_by_dst_rel(g, score)
         agg = ops.copy_e_sum(g, ops.gather(v, g.src) * attn[:, :, None]
                              ).reshape(-1, self.out_dim)
-        _, dst_denom, _, _ = _presence(g)
-        t_agg = agg / ops.gather(dst_denom.clamp_min(1.0), nt)[:, None]
+        p = _presence(g)
+        t_agg = agg / _per_node(p.dst_denom.clamp_min(1.0), p)[:, None]
         trans = dropout(self, drops, self.a_linears(t_agg, nt, tsort),
                         self.dropout)
         return _skip_mix(trans, h, self.skip, nt,
-                         ops.gather(dst_denom > 0, nt), g.node_mask)
+                         _per_node(p.dst_denom > 0, p), g.node_mask)
 
 
 class _HEAT(nn.Module):
@@ -280,7 +312,7 @@ class _HEAT(nn.Module):
                 typed_impl))
 
     def trunk(self, g: TypedGraph, drops: Optional[DropSource]):
-        pres = _presence(g)[3].to(g.feat.dtype)
+        pres = _presence(g).type_present.to(g.feat.dtype)
         tsort = (ops.make_type_sort(g.node_type, self.n_types)
                  if self.typed_impl == "ragged" else None)
         h = self.adapt_ws(g.feat, g.node_type, tsort)
@@ -304,7 +336,7 @@ class HEATNet2(_HEAT):
 
     def forward(self, g: TypedGraph, drops: Optional[DropSource] = None):
         pooled, pres = self.trunk(g, drops)
-        return (self.linears_prediction(pooled) * pres[None, :, None]).sum(1)
+        return (self.linears_prediction(pooled) * pres[:, :, None]).sum(1)
 
 
 class HEATNet4(_HEAT):
@@ -328,9 +360,10 @@ class HEATNet4(_HEAT):
 
     def forward(self, g: TypedGraph, drops: Optional[DropSource] = None):
         pooled, pres = self.trunk(g, drops)
-        out_h = self.linears_prediction(pooled) * pres[None, :, None]
+        out_h = self.linears_prediction(pooled) * pres[:, :, None]
         hg = out_h.sum(1)
-        gated = [getattr(self, f"attn_{kk}")(out_h[:, kk], hg) * pres[kk]
+        gated = [getattr(self, f"attn_{kk}")(out_h[:, kk], hg)
+                 * pres[:, kk, None]
                  for kk in range(self.n_types)]
         x = self.head_2(torch.cat(gated, dim=1))
         return self.head(self.head_1(x))

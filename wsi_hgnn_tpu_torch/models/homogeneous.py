@@ -277,8 +277,10 @@ class NTPoolGCN(nn.Module):
 
     def forward(self, g: TypedGraph, drops: Optional[DropSource] = None):
         t = self.n_types
-        type_counts = g.node_type_counts().reshape(g.n_graphs, t).sum(0)
-        present = (type_counts > 0).to(g.feat.dtype)
+        type_counts = g.node_type_counts().reshape(g.n_graphs, t)
+        if not g.per_graph_occupancy:     # over the batch
+            type_counts = type_counts.sum(0, keepdim=True)
+        present = (type_counts > 0).to(g.feat.dtype)          # [G, T]
         h = g.feat
         hg = g.feat.new_zeros(g.n_graphs, self.out_dim)
         for i in range(self.n_layers):
@@ -286,9 +288,10 @@ class NTPoolGCN(nn.Module):
                 h = dropout(self, drops, h, self.dropout)
             pooled = _pool_types(g, h, self.graph_pooling_type)
             heads = getattr(self, f"pred_{i}")(pooled.reshape(g.n_graphs, t, -1))
-            hg = hg + (heads * present[None, :, None]).sum(1)
+            hg = hg + (heads * present[:, :, None]).sum(1)
             h = getattr(self, f"conv_{i}")(g, h)
-        return hg / (self.n_layers * present.sum()).clamp_min(1.0)
+        return hg / (self.n_layers * present.sum(-1, keepdim=True)
+                     ).clamp_min(1.0)
 
 
 def _pool_types(g: TypedGraph, h: torch.Tensor, kind: str) -> torch.Tensor:
