@@ -79,8 +79,22 @@
    100-step GNNExplainer on a seeded 2048-node slide.
 11. MIL (mil, after 6.): `python -m wsi_hgnn_tpu_torch.train_mil` in
    process on the training cohort's 12 slides as bags, 2 folds x 2
-   epochs of abmil, dsmil with ReMix 'cov' and gtn; one step of each on
-   the card against the CPU; ms per step and peak memory per model.
+   epochs of abmil, dsmil with ReMix 'cov' and gtn (its fold pickles
+   kept); one step of each on the card against the CPU; ms per step and
+   peak memory per model.
+12. The rest of the MIL baselines (mil_tree, after 11.): `train_mil
+   --model h2mil` on the cohort's bags (synthetic parent level) and
+   `--nested-bags --encoder kimia` on 8 seeded two-magnification nested
+   bags (58 + 3 kernel launches per encoder chunk, one slide's level-2
+   features equal to the encoder called directly); `tools.vis_graphcam`
+   on the gtn fold and the largest bag (card against CPU within the
+   float64-measured rounding); `tools.pretrain_simclr` (frozen KimiaNet
+   through the f32 kernels at B = 128, 2 epochs), `--extract` over 6
+   slide directories (features equal to the KimiaNet module in f32) and
+   `train_mil --model gtn` on them; one H2MIL and one SimCLR step on the
+   card against the CPU; ms per H2MIL step, per GraphCAM class and per
+   SimCLR step, and the f32 kernels' ms per launch at B = 128 against
+   the f32 bound.
 The zoo (6.) also trains, evaluates and serves GCN with ASAP pooling
 (configs/BRCA/GCN_asap_classification.yml). The card-vs-CPU steps compare
 every parameter's gradient; a miss passes only where float64 explains it
@@ -91,8 +105,9 @@ and read after it.
 
 The line before the last is the kernels JSON (launches summed over the
 served requests, the server traffic, the training slice, the zoo's
-served slides, the constructions, the explanation and the MIL runs), the
-last line the device JSON. Any
+served slides, the constructions, the explanation, the MIL runs, the
+nested bags' encoder and SimCLR's pretraining and extraction), the last
+line the device JSON. Any
 failed check exits non-zero. Imports nothing of JAX.
 """
 from __future__ import annotations
@@ -894,7 +909,8 @@ def grad_check(torch, named_cpu, named_dev, named_f64, run64, base64,
     from wsi_hgnn_tpu_torch.train import gradcheck
 
     named_f64 = list(named_f64)
-    g64 = {n: p.grad.detach().double() for n, p in named_f64}
+    g64 = {n: p.grad.detach().double() for n, p in named_f64
+           if p.requires_grad}
 
     def card64():
         m = copy.deepcopy(base64).to(dev)
@@ -1348,23 +1364,44 @@ def zoo_phase(torch, dev, card, kernels, root: Path, splits, widths=None):
 # mil: the MIL bag baselines on the training cohort
 # ---------------------------------------------------------------------------
 MIL_RUNS = (("abmil", ()), ("dsmil", ("--remix-mode", "cov",
-                                      "--num-prototypes", "2")),
+                                      "--num-prototypes", "1")),
             ("gtn", ("--hidden", "64", "--clusters", "100")))
 MIL_TIMED_STEPS = 5
 
 
-def mil_step_on_card_vs_cpu(torch, dev, kind, model, bag, edges, cap):
-    """One train_mil step from the same weights on the card, the CPU and
-    the CPU in float64: (loss relative error, grad_check's result)."""
+def card_vs_cpu_step(torch, dev, model, step):
+    """One step from the same weights on the card, the CPU and the CPU in
+    float64 (`step(model, device, dtype)` runs it in place and returns the
+    loss): (loss relative error, grad_check's result)."""
     import copy
 
+    from wsi_hgnn_tpu_torch.train.gradcheck import float64_default
+
+    def run64(m, device):
+        with float64_default():
+            step(m, device, torch.float64)
+
+    cpu = torch.device("cpu")
+    base64 = copy.deepcopy(model).double()
+    m_cpu, m_dev = copy.deepcopy(model), copy.deepcopy(model).to(dev)
+    l_cpu = float(step(m_cpu, cpu, torch.float32))
+    l_dev = float(step(m_dev, dev, torch.float32))
+    m64 = copy.deepcopy(base64)
+    run64(m64, cpu)
+    return (abs(l_dev - l_cpu) / abs(l_cpu),) + grad_check(
+        torch, m_cpu.named_parameters(), m_dev.named_parameters(),
+        m64.named_parameters(), run64, base64, dev)
+
+
+def mil_step_on_card_vs_cpu(torch, dev, kind, model, bag, edges, cap):
+    """One train_mil step of a bag model on the card against the CPU
+    (card_vs_cpu_step)."""
     from wsi_hgnn_tpu_torch import train_mil
     from wsi_hgnn_tpu_torch.models.mil import pad_bag
-    from wsi_hgnn_tpu_torch.train.gradcheck import float64_default
 
     feats, mask = pad_bag(bag, capacity=cap)
 
-    def step(m, device, dtype=torch.float32):
+    def step(m, device, dtype):
         f = torch.from_numpy(feats).to(device, dtype)
         msk = torch.from_numpy(mask).to(device)
         if kind == "gtn":
@@ -1377,28 +1414,17 @@ def mil_step_on_card_vs_cpu(torch, dev, kind, model, bag, edges, cap):
                                weight_decay=5e-3)
         return train_mil.bag_train_step(m, opt, kind, 2, f, msk, 1)
 
-    def run64(m, device):
-        with float64_default():
-            step(m, device, torch.float64)
-
-    cpu = torch.device("cpu")
-    base64 = copy.deepcopy(model).double()
-    m_cpu, m_dev = copy.deepcopy(model), copy.deepcopy(model).to(dev)
-    l_cpu, l_dev = float(step(m_cpu, cpu)), float(step(m_dev, dev))
-    m64 = copy.deepcopy(base64)
-    run64(m64, cpu)
-    return (abs(l_dev - l_cpu) / abs(l_cpu),) + grad_check(
-        torch, m_cpu.named_parameters(), m_dev.named_parameters(),
-        m64.named_parameters(), run64, base64, dev)
+    return card_vs_cpu_step(torch, dev, model, step)
 
 
 def mil_phase(torch, dev, card, kernels, root: Path, splits):
     """`python -m wsi_hgnn_tpu_torch.train_mil` (in process, on the card)
     over the training cohort's 12 slides as bags (their 1000-3000 x 1024
     features, graphs built on the card), 2 folds and 2 epochs each, for
-    abmil, dsmil with ReMix 'cov' (2 prototypes: each prototype's shift
+    abmil, dsmil with ReMix 'cov' (1 prototype: each prototype's shift
     vectors are a 1024-d multivariate normal draw on the host) and gtn
-    (hidden 64, 100 clusters): finite summaries; then one step per model
+    (hidden 64, 100 clusters, its fold pickles written to mil_folds/ for
+    the GraphCAM of mil_tree): finite summaries; then one step per model
     on the card against the CPU (grad_check), ms per step on the card
     and peak memory per model. Returns the launch counts of the runs."""
     import math
@@ -1431,6 +1457,8 @@ def mil_phase(torch, dev, card, kernels, root: Path, splits):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
+        if kind == "gtn":
+            extra = extra + ("--save-dir", str(root / "mil_folds"))
         summary = train_mil.main(["--model", kind, *base, *extra])
         torch.cuda.synchronize()
         took = time.perf_counter() - t0
@@ -1484,6 +1512,440 @@ def mil_phase(torch, dev, card, kernels, root: Path, splits):
     torch.cuda.synchronize()
     log(f"mil phase took {time.perf_counter() - t_phase:.1f} s")
     return kernels.launch_counts()
+
+
+# ---------------------------------------------------------------------------
+# mil_tree: H2MIL on trees, nested bags, GraphCAM, SimCLR (after mil)
+# ---------------------------------------------------------------------------
+H2MIL_TIMED_STEPS = 5
+NESTED_SLIDES = 8      # 4 a class: each fold's held-out half tests 2 slides
+NESTED_LOW = (5, 8)    # low-magnification tiles a slide, drawn uniformly
+NESTED_THUMBS = 2      # slides given a -1.jpeg thumbnail by hand
+NESTED_BATCH = 32      # load_nested_trees' encoder chunk
+SIMCLR_CORPUS = 320    # 256 x 256 JPEG patches
+SIMCLR_BATCH = 64      # the tool's default: B = 128 through the backbone
+SIMCLR_EPOCHS = 2
+SIMCLR_SLIDES = (6, 16)  # extraction: slide directories x patches each
+SIMCLR_CHECK = 2       # images of the card-vs-CPU SimCLR step
+SIMCLR_TIMED_STEPS = 3
+
+
+def jpeg_tile(path: Path, rng, size: int = PATCH) -> None:
+    """A seeded H&E-coloured tile, written as JPEG."""
+    import numpy as np
+    from PIL import Image
+
+    base = np.array([200, 120, 160]) + rng.randint(-40, 40, 3)
+    img = np.clip(base + rng.randint(-30, 30, (size, size, 3)), 0, 255)
+    Image.fromarray(img.astype(np.uint8)).save(path, quality=90)
+
+
+def write_nested_bags(root: Path, seed: int = 80):
+    """NESTED_SLIDES two-magnification bags in the tiler's nested_patches
+    layout (<class>/<slide>/<x>_<y>.jpeg, children under <x>_<y>/), the
+    first NESTED_THUMBS with a `-1.jpeg` thumbnail. Returns (labels CSV,
+    the encoder chunks load_nested_trees makes)."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    rows, chunks = ["name,label"], 0
+    for i in range(NESTED_SLIDES):
+        label = i % 2
+        bag = root / ("tumor" if label else "normal") / f"nested{i}"
+        bag.mkdir(parents=True)
+        n_low = int(rng.randint(NESTED_LOW[0], NESTED_LOW[1] + 1))
+        n_high = 0
+        for c in rng.permutation(16)[:n_low]:
+            x, y = int(c % 4), int(c // 4)
+            jpeg_tile(bag / f"{x}_{y}.jpeg", rng)
+            kids = [(2 * x + dx, 2 * y + dy) for dx in (0, 1) for dy in (0, 1)
+                    if rng.rand() < 0.75]
+            if kids:
+                (bag / f"{x}_{y}").mkdir()
+            for hx, hy in kids:
+                jpeg_tile(bag / f"{x}_{y}" / f"{hx}_{hy}.jpeg", rng)
+            n_high += len(kids)
+        if i < NESTED_THUMBS:
+            jpeg_tile(bag / "-1.jpeg", rng)
+        chunks += (-(-n_low // NESTED_BATCH) + -(-n_high // NESTED_BATCH)
+                   + (i < NESTED_THUMBS))
+        rows.append(f"nested{i},{label}")
+    (root / "labels.csv").write_text("\n".join(rows) + "\n")
+    return root / "labels.csv", chunks
+
+
+def launch_delta(kernels, before):
+    return {k: v - before[k] for k, v in kernels.launch_counts().items()}
+
+
+def f32_kernel_timing(torch, dn, dev, gen, card):
+    """SimCLR's frozen backbone shapes in f32 at B = CHUNK (two views of a
+    64-image batch): every dense layer of each block and the three
+    transitions, each against its plain version on the same operands,
+    timed by CUDA events against the bound at the f32 peak. Returns the
+    summary rows {kernel: {ms, bound_ms, bound_by, plain_ms}}."""
+    f32 = torch.float32
+    out = {}
+    all_bounds, total_ms, total_plain, n_all = [], 0.0, 0.0, 0
+    for h, ch, n_layers in BLOCKS:
+        c_end = ch + 32 * n_layers
+        layers, bounds = [], []
+        for li in range(n_layers):
+            k_in = ch + 32 * li
+            ops = layer_operands(torch, dev, gen, h, c_end, k_in, f32)
+            check_layer(torch, dn, ops, h, k_in, "float32")
+            x = ops[0] if not layers else layers[0][0]
+            layers.append((x,) + ops[1:] + (k_in,))
+            px = CHUNK * h * h
+            bounds.append(bound(
+                px * (k_in + 32) * 4 + (k_in * 128 + 128 * 288) * 4,
+                2.0 * px * (k_in * 128 + 9 * 128 * 32), "float32"))
+
+        def run(fn):
+            def go():
+                for x, a1, b1, w1f, b2, w2cat, k_in in layers:
+                    fn(x, a1, b1, w1f, b2, w2cat,
+                       n_active_groups=-(-k_in // 128), slot=k_in // 32)
+            return go
+        ms = cuda_ms(run(dn.dense_layer_fused), reps=1, warmup=1)
+        plain = cuda_ms(run(dn.dense_layer_reference), reps=1, warmup=0)
+        shape_line("dense_layer_fused", f"float32 [{CHUNK},{h},{h},{c_end}]",
+                   n_layers, ms, bounds, card, plain / n_layers)
+        all_bounds += bounds
+        total_ms, total_plain, n_all = (total_ms + ms, total_plain + plain,
+                                        n_all + n_layers)
+    b_ms, b_by = mean_bound(all_bounds)
+    out["dense_layer_fused"] = dict(ms=total_ms / n_all, bound_ms=b_ms,
+                                    bound_by=b_by,
+                                    plain_ms=total_plain / n_all)
+    bounds, total_ms, total_plain = [], 0.0, 0.0
+    for h, c in ((64, 256), (32, 512), (16, 1024)):
+        kw = dict(generator=gen, device=dev)
+        x = torch.randn(CHUNK, h, h, c, **kw)
+        a = torch.rand(1, c, **kw) + 0.5
+        b = torch.randn(1, c, **kw) * 0.1
+        w = torch.randn(c, c // 2, **kw) * (2.0 / c) ** 0.5
+        ok, err = close(torch, dn.transition_fused(x, a, b, w),
+                        dn.transition_reference(x, a, b, w), "float32")
+        check(ok, f"transition f32 mismatch H={h} C={c}: max|err| {err:.3g}")
+        m = CHUNK * (h // 2) * (h // 2)
+        bd = bound(x.numel() * 4 + w.numel() * 4 + m * (c // 2) * 4 + 8 * c,
+                   2.0 * m * c * (c // 2) + 4.0 * m * 4 * c, "float32")
+        bounds.append(bd)
+        ms = cuda_ms(lambda: dn.transition_fused(x, a, b, w), reps=3)
+        plain = cuda_ms(lambda: dn.transition_reference(x, a, b, w), reps=3)
+        shape_line("transition_fused", f"float32 [{CHUNK},{h},{h},{c}]->"
+                   f"{c // 2}", 1, ms, [bd], card, plain)
+        total_ms, total_plain = total_ms + ms, total_plain + plain
+    b_ms, b_by = mean_bound(bounds)
+    out["transition_fused"] = dict(ms=total_ms / 3, bound_ms=b_ms,
+                                   bound_by=b_by, plain_ms=total_plain / 3)
+    for name, r in out.items():
+        log(f"timing {name} float32 at B={CHUNK} (SimCLR's backbone): "
+            f"{r['ms']:.4g} ms/launch (bound {r['bound_ms']:.4g} ms by "
+            f"{r['bound_by']}, share {r['bound_ms'] / r['ms']:.4g}; plain "
+            f"{r['plain_ms']:.4g} ms) [{card}]")
+    return out
+
+
+def graphcam_card_vs_cpu(torch, np, dev, pkl, bag):
+    """The bag's raw GraphCAM of every class on the card and on the CPU,
+    judged as PR 8's explanation scores: each within SCORE_RTOL |cpu| +
+    atol, atol 2 x 3 x the largest change randomly rounded float64 runs
+    (on the card) make; an all-zero or sign-flipped cam must fail it.
+    Returns (the card's cams, log text)."""
+    from wsi_hgnn_tpu_torch.tools import vis_graphcam as vis
+    from wsi_hgnn_tpu_torch.train.gradcheck import output_spread
+
+    cpu = torch.device("cpu")
+    feats, xy = vis.load_bag(str(bag))
+    n = len(feats)
+    m_dev, meta = vis.load_gtn(str(pkl), dev)
+    m_cpu, _ = vis.load_gtn(str(pkl), cpu)
+    cap = int(meta["cap"])
+    got = vis.raw_cams(m_dev, *vis.bag_inputs(feats, xy, cap, dev), n
+                       ).cpu().numpy()
+    want = vis.raw_cams(m_cpu, *vis.bag_inputs(feats, xy, cap, cpu), n
+                        ).numpy()
+    m64 = m_dev.double()
+    f64, a64, msk = vis.bag_inputs(feats, xy, cap, dev)
+    f64, a64 = f64.double(), a64.double()
+    want64 = vis.raw_cams(m64, f64, a64, msk, n)
+    atol = 2.0 * 3.0 * output_spread(
+        lambda: vis.raw_cams(m64, f64, a64, msk, n), want64, device=dev)
+    over = scores_over(np, got, want, atol)
+    rel = float(np.linalg.norm(got - want) / np.linalg.norm(want))
+    flipped = scores_over(np, -got, want, atol)
+    zeros = scores_over(np, np.zeros_like(got), want, atol)
+    check(over <= 1.0 and flipped > 1.0 and zeros > 1.0,
+          f"GraphCAM card vs CPU: largest error over its bound {over:.3g} "
+          f"(sign-flipped {flipped:.3g}, all-zero {zeros:.3g}; rel L2 "
+          f"{rel:.3g}, atol {atol:.3g})")
+    return got, (f"GraphCAM card vs CPU over {got.shape[0]} classes x {n} "
+                 f"nodes: rel L2 {rel:.3g}, largest error over rtol "
+                 f"{SCORE_RTOL:g} + atol {atol:.3g} {over:.3g} (<= 1); "
+                 f"sign-flipped {flipped:.3g}x, all-zero {zeros:.3g}x over")
+
+
+def mil_tree_phase(torch, dev, card, kernels, root: Path, dn, gen):
+    """The rest of the MIL baselines and the GTN feature pipeline on the
+    card (in process, each through its `python -m` entry point):
+
+    1. `train_mil --model h2mil` on the cohort's 12 bags (synthetic parent
+       level, --cell 4; hidden 64, k1 8, k2 32), 2 folds x 2 epochs;
+    2. `train_mil --model h2mil --nested-bags --encoder kimia` over
+       NESTED_SLIDES seeded two-magnification bags written in the tiler's
+       layout (two with a thumbnail): 58 dense-layer and 3 transition
+       launches per encoder chunk;
+    3. `tools.vis_graphcam` on the mil phase's gtn fold pickle and the
+       largest bag;
+    4. `tools.pretrain_simclr` over SIMCLR_CORPUS JPEG patches (KimiaNet
+       frozen, batch 64, 2 epochs, warmup 1), `--extract` over
+       SIMCLR_SLIDES slide directories, and `train_mil --model gtn` on
+       the extracted bags.
+
+    Counters are zeroed before 1. and read after 4. Then the checks and
+    timings: finite summaries; H2MIL and SimCLR steps on the card against
+    the CPU (grad_check, dropout off); the nested bags' level-2 features
+    equal to the encoder called directly; the card's GraphCAM against the
+    CPU's; the extracted features against the KimiaNet module in f32; ms
+    per H2MIL step, per GraphCAM class and per SimCLR step, and the f32
+    kernels at B = 128. Returns the launch counts of the main path."""
+    import math
+
+    import numpy as np
+
+    from wsi_hgnn_tpu_torch import convert, train_mil
+    from wsi_hgnn_tpu_torch.models.featurizers import make_cnn_encoder
+    from wsi_hgnn_tpu_torch.models.mil import H2MIL, graphcam, simclr
+    from wsi_hgnn_tpu_torch.models.mil.h2mil import (scan_nested_bag,
+                                                     tree_to_torch)
+    from wsi_hgnn_tpu_torch.pipeline.patches import iter_patch_batches
+    from wsi_hgnn_tpu_torch.tools import pretrain_simclr, vis_graphcam
+    from wsi_hgnn_tpu_torch.utils import to_torch
+
+    def finite(summary, what):
+        check(all(math.isfinite(summary[k]) for k in (
+            "acc_mean", "f1_mean", "auc_mean")), f"{what} summary {summary}")
+
+    t_phase = time.perf_counter()
+    labels = root / "mil_labels.csv"
+    base = ["--feats-dir", str(root), "--labels", str(labels), "--folds", "2",
+            "--epochs", "2", "--seed", "0"]
+    bags, _, names, coords = train_mil.load_bags(str(root), str(labels))
+    big = int(np.argmax([len(b) for b in bags]))
+    d = bags[0].shape[1]
+    nested, chunks = write_nested_bags(root / "nested")
+    corpus, slides = root / "simclr" / "corpus", root / "simclr" / "slides"
+    rng = np.random.RandomState(90)
+    for j in range(SIMCLR_CORPUS):
+        (corpus / f"c{j % 4}").mkdir(parents=True, exist_ok=True)
+        jpeg_tile(corpus / f"c{j % 4}" / f"{j}.jpeg", rng)
+    n_sl, per_sl = SIMCLR_SLIDES
+    for i in range(n_sl):
+        (slides / f"sim{i}").mkdir(parents=True)
+        for j in range(per_sl):
+            jpeg_tile(slides / f"sim{i}" / f"{j % 4}_{j // 4}.jpeg", rng)
+    (root / "simclr" / "labels.csv").write_text("\n".join(
+        ["name,label"] + [f"sim{i},{i % 2}" for i in range(n_sl)]) + "\n")
+    log(f"mil_tree inputs written in {time.perf_counter() - t_phase:.1f} s")
+
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    # 1. H2MIL on the cohort
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    h2 = train_mil.main(["--model", "h2mil", *base])
+    torch.cuda.synchronize()
+    h2_s = time.perf_counter() - t0
+    h2_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    finite(h2, "train_mil h2mil")
+    # 2. real two-level trees, KimiaNet on the card
+    before = kernels.launch_counts()
+    t0 = time.perf_counter()
+    nb = train_mil.main(["--model", "h2mil", "--nested-bags", "--encoder",
+                         "kimia", "--feats-dir", str(nested.parent),
+                         "--labels", str(nested), "--folds", "2",
+                         "--epochs", "2"])
+    torch.cuda.synchronize()
+    nb_s = time.perf_counter() - t0
+    nb_launch = launch_delta(kernels, before)
+    finite(nb, "train_mil h2mil --nested-bags")
+    # 3. GraphCAM of the gtn fold
+    pkl = root / "mil_folds" / "gtn_fold0.pkl"
+    bag = root / f"{names[big]}.npz"
+    t0 = time.perf_counter()
+    cams, probs = vis_graphcam.main(["--bag", str(bag), "--params", str(pkl),
+                                     "--out", str(root / "graphcam")])
+    torch.cuda.synchronize()
+    cam_s = time.perf_counter() - t0
+    check(np.isfinite(cams).all() and cams.shape == (2, len(bags[big]))
+          and (root / "graphcam.png").exists()
+          and abs(float(probs.sum()) - 1.0) < 1e-5,
+          f"vis_graphcam output {cams.shape}, probs {probs}")
+    # 4. SimCLR pretraining, extraction, GTN on the extracted bags
+    before = kernels.launch_counts()
+    t0 = time.perf_counter()
+    best = pretrain_simclr.main([
+        "--patch-dir", str(corpus), "--out", str(root / "simclr" / "run"),
+        "--epochs", str(SIMCLR_EPOCHS), "--warmup-epochs", "1",
+        "--batch", str(SIMCLR_BATCH)])
+    torch.cuda.synchronize()
+    pre_s = time.perf_counter() - t0
+    pre_launch = launch_delta(kernels, before)
+    n_val = max(int(SIMCLR_CORPUS * 0.1), SIMCLR_BATCH)
+    forwards = SIMCLR_EPOCHS * ((SIMCLR_CORPUS - n_val) // SIMCLR_BATCH
+                                + n_val // SIMCLR_BATCH)
+    before = kernels.launch_counts()
+    t0 = time.perf_counter()
+    written = pretrain_simclr.main([
+        "--extract", "--ckpt", best, "--patch-dir", str(slides),
+        "--out", str(root / "simclr" / "feats")])
+    torch.cuda.synchronize()
+    ext_s = time.perf_counter() - t0
+    ext_launch = launch_delta(kernels, before)
+    gtn = train_mil.main(["--model", "gtn", "--feats-dir",
+                          str(root / "simclr" / "feats"), "--labels",
+                          str(root / "simclr" / "labels.csv"), "--folds", "2",
+                          "--epochs", "2"])
+    torch.cuda.synchronize()
+    launches = kernels.launch_counts()
+    finite(gtn, "train_mil gtn on SimCLR features")
+    for name, per in PER_CHUNK.items():
+        check(nb_launch[name] == per * chunks,
+              f"nested bags launched {nb_launch[name]} {name}, want "
+              f"{per} x {chunks} chunks")
+        check(pre_launch[name] == per * forwards,
+              f"pretrain_simclr launched {pre_launch[name]} {name}, want "
+              f"{per} x {forwards} forwards")
+        check(ext_launch[name] == per * n_sl,
+              f"--extract launched {ext_launch[name]} {name}, want "
+              f"{per} x {n_sl} slides")
+    check(launches["knn_l2_fused"] == 0, f"mil_tree launched {launches}")
+    log(f"mil_tree main path: h2mil k-fold {h2_s:.1f} s (acc "
+        f"{h2['acc_mean']:.4f} auc {h2['auc_mean']:.4f}, peak "
+        f"{h2_peak:.2f} GiB); nested bags {nb_s:.1f} s ({NESTED_SLIDES} "
+        f"slides, {chunks} encoder chunks, {nb_launch['dense_layer_fused']} "
+        f"dense / {nb_launch['transition_fused']} transition launches, acc "
+        f"{nb['acc_mean']:.4f}); vis_graphcam {cam_s:.1f} s (probs "
+        f"{np.round(probs, 4).tolist()}); pretrain_simclr {pre_s:.1f} s "
+        f"({forwards} backbone forwards at B={2 * SIMCLR_BATCH}, "
+        f"{pre_launch['dense_layer_fused']} dense launches); --extract "
+        f"{ext_s:.1f} s ({len(written)} bags); gtn on them acc "
+        f"{gtn['acc_mean']:.4f} [{card}]")
+
+    failures = []
+    # H2MIL: one step on the card against the CPU, then the timed step
+    tree = train_mil.synthetic_trees(bags, coords, 4)[big]
+    model = convert.init_flax_like_(H2MIL(d, 64, 2, dropout=0.0), 0)
+
+    def h2_step(m, device, dtype):
+        opt = torch.optim.Adam(m.parameters(), lr=2e-4, weight_decay=5e-4)
+        return train_mil.h2mil_train_step(
+            m, opt, tree_to_torch(tree, device, dtype), 1)
+
+    rel, text, failed = card_vs_cpu_step(torch, dev, model, h2_step)
+    if rel > 1e-5 or failed:
+        failures.append(f"h2mil: loss {rel}, gradients of {failed}")
+    log(f"mil_tree h2mil card vs CPU step loss rel err {rel:.3g} (<= 1e-5), "
+        f"{text}")
+    m = convert.init_flax_like_(H2MIL(d, 64, 2), 0).to(dev)
+    opt = torch.optim.Adam(m.parameters(), lr=2e-4, weight_decay=5e-4)
+    t_dev = tree_to_torch(tree, dev)
+    g_drop = torch.Generator(device=dev).manual_seed(1)
+    h2_ms = cuda_ms(lambda: train_mil.h2mil_train_step(m, opt, t_dev, 1,
+                                                       g_drop),
+                    reps=H2MIL_TIMED_STEPS)
+    log(f"timing mil_tree h2mil: {h2_ms:.2f} ms per train step (CUDA "
+        f"events, mean of {H2MIL_TIMED_STEPS}, the {len(bags[big])}-patch "
+        f"bag: {int(tree.node_mask.sum())} tree nodes, "
+        f"{int(tree.edge_mask.sum())} edges), peak of the k-fold run "
+        f"{h2_peak:.2f} GiB [{card}]")
+
+    # nested bags: one slide's level-2 features from the encoder directly
+    encoder = make_cnn_encoder("kimia", {"feature_dim": 1024}, {}, {},
+                               pad_batch_to=NESTED_BATCH, device=dev)
+    trees, _, slide_names = train_mil.load_nested_trees(
+        str(nested.parent), str(nested), "kimia", encoder=encoder)
+    _, _, high, _, _, _ = scan_nested_bag(
+        nested.parent / "normal" / slide_names[0])
+    direct = np.concatenate([encoder(b)[0] for b in
+                             iter_patch_batches(high, NESTED_BATCH)])
+    first = trees[0]
+    n_real = int(first.node_mask.sum())
+    check(np.array_equal(first.feats[n_real - len(high):n_real], direct),
+          "nested bag level-2 features differ from the encoder's")
+
+    # GraphCAM: card against CPU, then ms per class
+    _, cam_text = graphcam_card_vs_cpu(torch, np, dev, pkl, bag)
+    log(f"mil_tree {cam_text}")
+    g_model, meta = vis_graphcam.load_gtn(str(pkl), dev)
+    feats, xy = vis_graphcam.load_bag(str(bag))
+    inputs = vis_graphcam.bag_inputs(feats, xy, int(meta["cap"]), dev)
+    cam_ms = cuda_ms(lambda: graphcam(g_model, *inputs, 0), reps=3)
+    log(f"timing mil_tree graphcam: {cam_ms:.2f} ms per class (CUDA events, "
+        f"{len(feats)} nodes at capacity {meta['cap']}, 100 clusters) "
+        f"[{card}]")
+
+    # SimCLR: extracted features against the module, a step on the card
+    # against the CPU, ms per step
+    s_model, _ = pretrain_simclr.load_checkpoint(best, dev)
+    sl0 = sorted((slides / "sim0").glob("*.jpeg"))
+    with np.load(root / "simclr" / "feats" / "sim0.npz") as z:
+        got_f = torch.from_numpy(z["feat"]).to(dev)
+    with torch.inference_mode():
+        want_f = s_model(to_torch(pretrain_simclr.load_batch(sl0, PATCH),
+                                  dev))[0]
+    err = float((got_f - want_f).abs().max())
+    check(bool(torch.allclose(got_f, want_f, rtol=1e-3, atol=1e-4)),
+          f"extracted features vs KimiaNet module: max|err| {err:.3g}")
+    imgs = torch.from_numpy(pretrain_simclr.load_batch(
+        sorted(corpus.rglob("*.jpeg"))[:SIMCLR_CHECK], PATCH))
+    views = simclr.draw_views(SIMCLR_CHECK, PATCH, PATCH,
+                              torch.Generator().manual_seed(3))
+    check_model, _ = pretrain_simclr.load_checkpoint(best, torch.device("cpu"))
+    for p in check_model.backbone.parameters():
+        p.requires_grad_(False)
+
+    def s_step(mdl, device, dtype):
+        if dtype == torch.float32:
+            project, _ = pretrain_simclr.make_projector(mdl, "kimia", False,
+                                                        device)
+        else:
+            def project(x):
+                with torch.no_grad():
+                    out_1 = mdl(x)[0]
+                return mdl.fc_4(out_1)
+        opt = torch.optim.Adam(mdl.fc_4.parameters(), lr=1e-5,
+                               weight_decay=1e-5)
+        return simclr.simclr_train_step(project, opt, imgs.to(device, dtype),
+                                        views=views)
+
+    rel, text, failed = card_vs_cpu_step(torch, dev, check_model, s_step)
+    if rel > 1e-5 or failed:
+        failures.append(f"simclr: loss {rel}, gradients of {failed}")
+    log(f"mil_tree simclr card vs CPU step ({SIMCLR_CHECK} images) loss rel "
+        f"err {rel:.3g} (<= 1e-5), {text}; extracted features vs the "
+        f"module max|err| {err:.3g} (rtol 1e-3, atol 1e-4)")
+    project, trained = pretrain_simclr.make_projector(s_model, "kimia", False,
+                                                      dev)
+    opt = torch.optim.Adam(trained, lr=1e-5, weight_decay=1e-5)
+    batch = to_torch(pretrain_simclr.load_batch(
+        sorted(corpus.rglob("*.jpeg"))[:SIMCLR_BATCH], PATCH), dev)
+    g_views = torch.Generator(device=dev).manual_seed(4)
+    step_ms = cuda_ms(lambda: simclr.simclr_train_step(project, opt, batch,
+                                                       g_views),
+                      reps=SIMCLR_TIMED_STEPS, warmup=1)
+    log(f"timing mil_tree simclr: {step_ms:.2f} ms per train step (CUDA "
+        f"events, mean of {SIMCLR_TIMED_STEPS}; batch {SIMCLR_BATCH}: "
+        f"{2 * SIMCLR_BATCH} views of {PATCH}x{PATCH} through the f32 "
+        f"kernel chain, fc_4 trained) [{card}]")
+    f32_kernel_timing(torch, dn, dev, gen, card)
+    check(not failures, "card steps differ from the CPU: "
+          + "; ".join(failures))
+    torch.cuda.synchronize()
+    log(f"mil_tree phase took {time.perf_counter() - t_phase:.1f} s")
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -2375,7 +2837,8 @@ def main() -> int:
     def training(root):
         trained, splits = train_phase(torch, dev, card, kernels, root)
         return (trained, zoo_phase(torch, dev, card, kernels, root, splits),
-                mil_phase(torch, dev, card, kernels, root, splits))
+                mil_phase(torch, dev, card, kernels, root, splits),
+                mil_tree_phase(torch, dev, card, kernels, root, dn, gen_dev))
 
     def building(root):
         constructed = construct_phase(torch, dev, card, kernels, root)

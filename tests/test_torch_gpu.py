@@ -293,7 +293,8 @@ def judge_grads(named_cpu, named_dev, run64, base64, dev, plant=None):
     fails, the float64 gradients {'cpu': ..., 'card': ... or absent})."""
     m64 = copy.deepcopy(base64)
     run64(m64, torch.device("cpu"))
-    g64 = {n: p.grad.detach().double() for n, p in m64.named_parameters()}
+    g64 = {n: p.grad.detach().double() for n, p in m64.named_parameters()
+           if p.requires_grad}
     seen = {"cpu": g64}
 
     def card64():
@@ -302,7 +303,7 @@ def judge_grads(named_cpu, named_dev, run64, base64, dev, plant=None):
             plant(m)
         run64(m, dev)
         seen["card"] = {n: p.grad.detach().cpu().double()
-                        for n, p in m.named_parameters()}
+                        for n, p in m.named_parameters() if p.requires_grad}
         return m.named_parameters()
 
     text, failed = gradcheck.judge(
@@ -907,3 +908,186 @@ def test_mil_step_on_card_matches_cpu(cuda, kind):
     assert abs(l_dev - l_cpu) <= 1e-5 * abs(l_cpu)
     assert_grads_match(m_cpu.named_parameters(), m_dev.named_parameters(),
                        run64, base64, cuda)
+
+
+def test_h2mil_step_on_card_matches_cpu(cuda):
+    """One H2MIL train_mil step (dropout off, so both devices compute one
+    function) on the card against the CPU: loss to 1e-5 relative,
+    gradients by assert_grads_match; IHPool's weights, which no gradient
+    reaches, exactly 0 on both."""
+    from wsi_hgnn_tpu_torch import train_mil
+    from wsi_hgnn_tpu_torch.models.mil import H2MIL
+    from wsi_hgnn_tpu_torch.models.mil.h2mil import (build_tree_graph,
+                                                     tree_to_torch)
+
+    rng = np.random.RandomState(6)
+    d, n = 64, 300
+    tree = build_tree_graph(rng.randn(n, d).astype(np.float32),
+                            train_mil.grid_coords(n), cell=4)
+    model = convert.init_flax_like_(H2MIL(d, 32, 2, dropout=0.0), seed=2)
+    base64 = copy.deepcopy(model).double()
+
+    def step(m, dev, dtype=torch.float32):
+        opt = torch.optim.Adam(m.parameters(), lr=2e-4, weight_decay=5e-4)
+        return train_mil.h2mil_train_step(m, opt,
+                                          tree_to_torch(tree, dev, dtype), 1)
+
+    def run64(m, dev):
+        with gradcheck.float64_default():
+            step(m, dev, torch.float64)
+
+    m_cpu, m_dev = copy.deepcopy(model), copy.deepcopy(model).to(cuda)
+    l_cpu = float(step(m_cpu, torch.device("cpu")))
+    l_dev = float(step(m_dev, cuda))
+    assert abs(l_dev - l_cpu) <= 1e-5 * abs(l_cpu)
+    assert not m_dev.pool_1.weight_1.grad.any()
+    assert_grads_match(m_cpu.named_parameters(), m_dev.named_parameters(),
+                       run64, base64, cuda)
+
+
+def test_simclr_step_on_card_matches_cpu(cuda):
+    """One frozen-KimiaNet SimCLR step from the same weights and view
+    draws: the card's fused f32 kernels, the CPU's plain versions, the
+    float64 step through the KimiaNet module; loss to 1e-5 relative and
+    fc_4's gradients by assert_grads_match (the frozen backbone's
+    parameters, requires_grad off, take no part)."""
+    from wsi_hgnn_tpu_torch.models.mil import simclr
+    from wsi_hgnn_tpu_torch.tools import pretrain_simclr as tool
+
+    model = convert.init_flax_like_(KimiaNet(64), seed=3).eval()
+    for p in model.backbone.parameters():    # frozen: judged fc_4 alone
+        p.requires_grad_(False)
+    base64 = copy.deepcopy(model).double()
+    imgs = torch.rand(4, 64, 64, 3, generator=torch.Generator().manual_seed(4))
+    views = simclr.draw_views(4, 64, 64, torch.Generator().manual_seed(5))
+
+    def step(m, dev, project=None):
+        if project is None:
+            project, _ = tool.make_projector(m, "kimia", False, dev)
+        opt = torch.optim.Adam(m.fc_4.parameters(), lr=1e-5,
+                               weight_decay=1e-5)
+        return simclr.simclr_train_step(project, opt,
+                                        imgs.to(dev, m.fc_4.weight.dtype),
+                                        views=views)
+
+    def run64(m, dev):
+        def project(x):
+            with torch.no_grad():
+                feats = m(x)[0]
+            return m.fc_4(feats)
+        with gradcheck.float64_default():
+            step(m, dev, project)
+
+    m_cpu, m_dev = copy.deepcopy(model), copy.deepcopy(model).to(cuda)
+    kernels.reset_launch_counts()
+    l_dev = float(step(m_dev, cuda))
+    assert kernels.launch_counts()["dense_layer_fused"] == 58
+    l_cpu = float(step(m_cpu, torch.device("cpu")))
+    assert abs(l_dev - l_cpu) <= 1e-5 * abs(l_cpu)
+
+    assert_grads_match(m_cpu.named_parameters(), m_dev.named_parameters(),
+                       run64, base64, cuda)
+
+
+def test_fused_kimianet_f32_at_simclr_batch_matches_module(cuda):
+    """SimCLR's frozen backbone on the card: the f32 kernel chain at
+    B = 128 (two views of a 64-image batch), 256 x 256, against the
+    module on the card, at the f32 chain's tolerance."""
+    model = convert.init_flax_like_(KimiaNet(), seed=5).eval().to(cuda)
+    fp = fuse_kimianet(convert.to_flax_variables(model), dtype=torch.float32,
+                       device=cuda)
+    x = torch.rand(128, 256, 256, 3, generator=torch.Generator(
+        device=cuda).manual_seed(6), device=cuda)
+    kernels.reset_launch_counts()
+    with torch.inference_mode():
+        got, _ = kimianet_fused_apply(fp, x)
+        want, _ = model(x)
+    assert kernels.launch_counts() == {"knn_l2_fused": 0,
+                                       "dense_layer_fused": 58,
+                                       "transition_fused": 3}
+    torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-4)
+
+
+def test_graphcam_on_card_matches_cpu(cuda):
+    """GraphCAM of every class on the card against the CPU: within 1e-4
+    relative plus an atol of 3x the spread of randomly rounded float64
+    runs (gradcheck.output_spread), as the explanation scores are judged;
+    a sign-flipped cam fails that check."""
+    from wsi_hgnn_tpu_torch import train_mil
+    from wsi_hgnn_tpu_torch.models import mil
+
+    rng = np.random.RandomState(7)
+    d, n, cap = 64, 300, 320
+    model = convert.init_flax_like_(mil.GraphTransformer(2, d, 64, 100),
+                                    seed=4).eval()
+    feats, mask = mil.pad_bag(rng.randn(n, d).astype(np.float32),
+                              capacity=cap)
+    edges = mil.spatial_adjacency([tuple(c)
+                                   for c in train_mil.grid_coords(n)])
+
+    def cam(m, dev, c, dtype=torch.float32):
+        f = torch.from_numpy(feats[None]).to(dev, dtype)
+        adj = train_mil.dense_adjacency(edges, cap, dev).to(dtype)
+        return mil.graphcam(m, f, adj, torch.from_numpy(mask[None]).to(dev),
+                            c)
+
+    m_dev = copy.deepcopy(model).to(cuda)
+    m64 = copy.deepcopy(model).double()
+    for c in range(2):
+        want = cam(model, torch.device("cpu"), c).numpy()
+        got = cam(m_dev, cuda, c).cpu().numpy()
+        want64 = cam(m64, torch.device("cpu"), c, torch.float64)
+        spread = gradcheck.output_spread(
+            lambda: cam(copy.deepcopy(m64), torch.device("cpu"), c,
+                        torch.float64), want64)
+        atol = 3.0 * spread
+        assert np.all(np.abs(got - want) <= atol + 1e-4 * np.abs(want))
+        assert not np.all(np.abs(-got - want) <= atol + 1e-4 * np.abs(want))
+
+
+def test_nested_bag_encoder_launch_counts(cuda, tmp_path):
+    """--nested-bags --encoder kimia on the card: 58 dense-layer and 3
+    transition launches per encoder chunk (low tiles, high tiles and the
+    thumbnail chunked per slide), and the level-2 features equal to the
+    encoder called on those tiles."""
+    from PIL import Image
+
+    from wsi_hgnn_tpu_torch import train_mil
+    from wsi_hgnn_tpu_torch.models.featurizers import make_cnn_encoder
+    from wsi_hgnn_tpu_torch.models.mil.h2mil import scan_nested_bag
+    from wsi_hgnn_tpu_torch.pipeline.patches import iter_patch_batches
+
+    rng = np.random.RandomState(8)
+    rows, chunks, bs = ["name,label"], 0, 8
+    for i in range(2):
+        bag = tmp_path / "tiles" / f"s{i}"
+        bag.mkdir(parents=True)
+        n_low = 5 + i
+        for x in range(n_low):
+            Image.fromarray(rng.randint(0, 256, (256, 256, 3)).astype(
+                np.uint8)).save(bag / f"{x}_0.jpeg")
+            (bag / f"{x}_0").mkdir()
+            for dx in range(2):
+                Image.fromarray(rng.randint(0, 256, (256, 256, 3)).astype(
+                    np.uint8)).save(bag / f"{x}_0" / f"{2 * x + dx}_0.jpeg")
+        Image.fromarray(rng.randint(0, 256, (256, 256, 3)).astype(
+            np.uint8)).save(bag / "-1.jpeg")
+        chunks += -(-n_low // bs) + -(-2 * n_low // bs) + 1
+        rows.append(f"s{i},{i}")
+    (tmp_path / "labels.csv").write_text("\n".join(rows) + "\n")
+    encoder = make_cnn_encoder("kimia", {"feature_dim": 1024}, {}, {},
+                               pad_batch_to=bs, device=cuda)
+    kernels.reset_launch_counts()
+    trees, _, _ = train_mil.load_nested_trees(
+        str(tmp_path / "tiles"), str(tmp_path / "labels.csv"), "kimia",
+        batch_size=bs, encoder=encoder)
+    counts = kernels.launch_counts()
+    assert counts["dense_layer_fused"] == 58 * chunks
+    assert counts["transition_fused"] == 3 * chunks
+    _, _, high, _, _, _ = scan_nested_bag(tmp_path / "tiles" / "s0")
+    direct = np.concatenate([encoder(b)[0] for b in
+                             iter_patch_batches(high, bs)])
+    t = trees[0]
+    n2 = int((t.node_type[t.node_mask] == 2).sum())
+    np.testing.assert_array_equal(t.feats[int(t.node_mask.sum()) - n2:
+                                          int(t.node_mask.sum())], direct)

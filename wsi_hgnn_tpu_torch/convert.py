@@ -18,14 +18,18 @@ leaf maps by the kind of module that owns it:
                                        [T, in, out] and bias [T, out],
                                        HEAT's skip [T], GAT's attn_l/r
                                        [1, H, F], GIN's scalar eps, HGT's
-                                       relation_att/msg/pri, per-type
+                                       relation_att/msg/pri, H2MIL's
+                                       att_l/att_r/t_att_l/t_att_r
+                                       [1, H, C] and weight_1/weight_2
+                                       [1, D], per-type
                                        LayerNorm scale/bias [T, d], DSMIL's
                                        fcc_kernel [C, C, V], GTN's
                                        cls_token)
 
 `init_flax_like_` draws a module's weights from a seed with flax's
 default initialisers (lecun-normal kernels, xavier-uniform HGT relation
-tensors, xavier-normal GAT attention vectors, zero biases, BN 1/0/0/1),
+tensors and H2MIL attention vectors, xavier-normal GAT attention vectors,
+U[0, 1) IHPool fitness weights, zero biases, BN 1/0/0/1),
 so a run without weight files starts where a flax run would (DSMIL's
 fcc_kernel, whose flax initialiser takes its fan-in over the last two
 axes, included).
@@ -166,6 +170,11 @@ def params_from_flax(module: nn.Module, tree: Dict) -> Dict[str, np.ndarray]:
 _TRUNC_STD = 0.87962566103423978
 # leaves flax initialises to ones; every other non-kernel leaf is zeros
 _ONES = ("scale", "var", "skip", "relation_pri")
+# xavier-uniform leaves (HGT's relation tensors, H2MIL's RAConv attention)
+_XAVIER_UNIFORM = ("relation_att", "relation_msg", "att_l", "att_r",
+                   "t_att_l", "t_att_r")
+# U[0, 1) leaves (H2MIL's IHPool fitness projections)
+_UNIFORM = ("weight_1", "weight_2")
 
 
 def _flax_fans(shape) -> Tuple[int, int]:
@@ -186,15 +195,19 @@ def trunc_normal(shape, std: float, gen: torch.Generator) -> torch.Tensor:
 @torch.no_grad()
 def init_flax_like_(module: nn.Module, seed: int) -> nn.Module:
     """Seeded init with flax's defaults, in place: kernels lecun-normal
-    (variance 1/fan_in), HGT's relation_att/relation_msg xavier-uniform
-    and GAT's attn_l/attn_r xavier-normal (variance 2/(fan_in+fan_out)),
-    all with flax's fans; relation_pri, skip, scales and running
-    variances 1; biases, eps and running means 0."""
+    (variance 1/fan_in), HGT's relation_att/relation_msg and H2MIL's
+    att_l/att_r/t_att_l/t_att_r xavier-uniform and GAT's attn_l/attn_r
+    xavier-normal (variance 2/(fan_in+fan_out)), all with flax's fans;
+    IHPool's weight_1/weight_2 U[0, 1); relation_pri, skip, scales and
+    running variances 1; biases, eps and running means 0."""
     gen = torch.Generator().manual_seed(seed)
     for owner, _, leaf, t in _leaves(module):
         name = _leaf(owner, leaf)[1]
-        if name not in ("kernel", "relation_att", "relation_msg", "attn_l",
-                        "attn_r", "fcc_kernel"):
+        if name in _UNIFORM:
+            t.copy_(torch.rand(t.shape, generator=gen))
+            continue
+        if name not in ("kernel", "attn_l", "attn_r", "fcc_kernel"
+                        ) + _XAVIER_UNIFORM:
             t.fill_(1.0 if name in _ONES else 0.0)
             continue
         # fans from the flax layout; the draw is in the torch layout
@@ -205,7 +218,7 @@ def init_flax_like_(module: nn.Module, seed: int) -> nn.Module:
         elif name == "fcc_kernel":   # variance_scaling, in_axis=(-2, -1)
             t.copy_(trunc_normal(t.shape, math.sqrt(
                 1.0 / (t.shape[-2] * t.shape[-1])), gen))
-        elif name in ("relation_att", "relation_msg"):
+        elif name in _XAVIER_UNIFORM:
             limit = math.sqrt(6.0 / (fan_in + fan_out))
             t.copy_((torch.rand(t.shape, generator=gen) * 2.0 - 1.0) * limit)
         else:  # attn_l, attn_r

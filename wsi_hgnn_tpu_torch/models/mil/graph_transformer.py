@@ -12,7 +12,10 @@ orthogonality losses with Frobenius norms floored at 1e-12; the pooled
 adjacency with its diagonal zeroed and degree-normalised. The GCN
 block's BatchNorm is the zoo's MaskedBatchNorm (flax momentum 0.9, the
 unbiased variance): batch statistics in training, running ones in eval.
-GraphCAM waits with the relevance propagation (ROADMAP.md).
+
+`graphcam` is the reference's GraphCAM: the transformer-LRP relevance of
+relprop.py over the cluster tokens, mapped back to the nodes through the
+softmaxed assignment matrix.
 """
 from __future__ import annotations
 
@@ -135,3 +138,27 @@ class GraphTransformer(nn.Module):
             x = getattr(self, f"blocks_{i}")(x)
         logits = self.head(self.norm(x)[:, 0])
         return logits, mc1 + o1
+
+
+@torch.no_grad()
+def graphcam(model: GraphTransformer, node_feat, adj, mask, class_idx: int,
+             method: str = "transformer_attribution") -> torch.Tensor:
+    """Per-node GraphCAM relevance [N] for `class_idx` of the first bag:
+    the pooled cluster tokens recomputed (conv1 with its running batch
+    statistics, pool1, dense_mincut_pool), `vit_relprop` over [cls,
+    clusters], then softmax(s) * mask @ cam."""
+    from .relprop import vit_relprop
+
+    was_training = model.training
+    model.eval()
+    try:
+        x = mask.to(node_feat.dtype)[:, :, None] * node_feat
+        x = model.conv1(x, adj, mask)
+        s = model.pool1(x)
+        x_pool = dense_mincut_pool(x, adj, s, mask)[0]
+        tokens = torch.cat([model.cls_token, x_pool[:1]], 1)
+        cam_cluster = vit_relprop(model, tokens, class_idx, method=method)
+    finally:
+        model.train(was_training)
+    s_soft = torch.softmax(s, -1)[0] * mask[0].to(s.dtype)[:, None]
+    return s_soft @ cam_cluster

@@ -1,5 +1,6 @@
-"""Graph-construction pipeline of the port: slide tiling, patch loading,
-slide-to-graph construction on the device, train/val/test splits.
+"""Graph-construction pipeline of the port: slide tiling, the in-memory
+tissue extractor, patch loading, slide-to-graph construction on the
+device, train/val/test splits.
 
 Names load lazily from their modules, so a spawned tiling worker that
 imports `pipeline.tiler` does not import torch with `construct`."""
@@ -12,6 +13,7 @@ _EXPORTS = {
     "iter_patch_batches": "patches", "list_patches": "patches",
     "load_patch": "patches",
     "generate_splits": "splits", "write_split_lists": "splits",
+    "Extractor": "extractor",
     "DeepZoomStaticTiler": "tiler", "PilDeepZoom": "tiler",
     "nested_patches": "tiler", "tile_slides": "tiler",
 }

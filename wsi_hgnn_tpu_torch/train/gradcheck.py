@@ -151,7 +151,10 @@ class float64_default:
 
 
 def _grads(named) -> Dict[str, torch.Tensor]:
-    return {n: p.grad.detach().cpu().double() for n, p in named}
+    """The gradients of the trained parameters (frozen ones, with
+    requires_grad off, take no part)."""
+    return {n: p.grad.detach().cpu().double() for n, p in named
+            if p.requires_grad}
 
 
 def rounding_spread(run_step: Callable[[torch.nn.Module], None],

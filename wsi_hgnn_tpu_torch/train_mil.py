@@ -8,11 +8,21 @@ train_mil.py): the reference's k-fold mains behind one CLI.
   * gtn: the GTNMIL GraphTransformer over the 8-neighbour tile graph
     (dense [cap, cap] adjacency built per call on the device, cap =
     bucket_size(largest bag, 64)), CE plus the mincut losses, Adam
-    weight decay 5e-4, the same cosine LR, test score softmax(logits).
+    weight decay 5e-4, the same cosine LR, test score softmax(logits);
+  * h2mil: the multi-resolution tree through RAConv/IHPool, the
+    reference's CE of the softmax, Adam with coupled L2 5e-4 at a
+    constant LR, dropout live in training (drawn from a torch.Generator
+    seeded with --seed + 1). The parent level is synthesised from the
+    single-magnification bags (`--cell`), or, with `--nested-bags`, both
+    levels are real: the tiler's two-magnification nested bags featurized
+    by `--encoder` (random, kimia, efficientnet-b4), the `-1.jpeg`
+    thumbnail too where present.
 
   python -m wsi_hgnn_tpu_torch.train_mil --model dsmil --feats-dir bags/ \\
       --labels labels.csv --folds 5 --epochs 50 [--remix-mode cov]
   python -m wsi_hgnn_tpu_torch.train_mil --model gtn ... [--device cpu]
+  python -m wsi_hgnn_tpu_torch.train_mil --model h2mil --nested-bags \\
+      --encoder kimia --feats-dir tiled/ --labels labels.csv
 
 Bags are `.npy` [N, D] files or graph `.npz` files (their `feat`; an `xy`
 [N, 2] of tile coordinates feeds gtn, else a square raster grid).
@@ -20,8 +30,7 @@ Labels come from a `name,label` CSV. The folds, the epoch order and the
 ReMix draws come from np.random.RandomState(--seed) as in JAX; the
 weights are drawn by convert.init_flax_like_(--seed) with flax's
 initialisers. Each fold's weights can be written as the JAX pickle
-(`--save-dir`). Runs on the card unless `--device cpu`. `--model h2mil`
-and `--nested-bags` wait for the next slice (ROADMAP.md).
+(`--save-dir`). Runs on the card unless `--device cpu`.
 """
 from __future__ import annotations
 
@@ -39,8 +48,12 @@ import torch.nn.functional as F
 
 from . import convert
 from .graph.typed_graph import bucket_size
-from .models.mil import (ABMIL, DSMIL, GraphTransformer, mix_the_bag_aug,
-                         pad_bag, reduce_bag, spatial_adjacency)
+from .models.mil import (ABMIL, DSMIL, H2MIL, GraphTransformer,
+                         mix_the_bag_aug, pad_bag, reduce_bag,
+                         spatial_adjacency)
+from .models.mil.h2mil import (build_tree_graph, build_tree_graph_levels,
+                               fill_dead_grads, scan_nested_bag,
+                               tree_to_torch)
 from .train.metrics import accuracy, metrics
 from .utils import resolve_device, set_cuda_numerics
 
@@ -360,6 +373,157 @@ def run_gtn(args, bags, labels, coords, init_variables: Optional[Dict] = None):
 
 
 # ------------------------------------------------------------------------- #
+def nested_slide_dirs(nested_dir: str, labels_map: Dict[str, int],
+                      ext: str = "jpeg"):
+    """[(name, dir)] of the labelled slide bags under `nested_dir`, found
+    directly under it or one class level down (the tiler's layout); a
+    slide's own child-tile directories are never entered."""
+    slide_dirs = []
+    for root, dirs, files in os.walk(nested_dir):
+        if any(f.endswith("." + ext) for f in files):
+            name = os.path.basename(root)
+            if name in labels_map:
+                slide_dirs.append((name, root))
+        if os.path.basename(root) in labels_map:
+            dirs.clear()
+    return sorted(slide_dirs)
+
+
+def load_nested_trees(nested_dir: str, labels_csv: str, encoder_name: str,
+                      ext: str = "jpeg", batch_size: int = 32, device=None,
+                      encoder=None):
+    """Real two-magnification H2MIL input: scan each slide's nested bag,
+    featurize both levels (and the thumbnail, when present) with one
+    encoder (`encoder_name` through pipeline.construct.make_encoder, every
+    chunk padded to `batch_size`; or `encoder`, a callable patches ->
+    (features, types)), and build the TreeGraphs at one capacity
+    (bucket_size of the largest, base 64). Returns (trees, labels, names)."""
+    from .pipeline.construct import make_encoder
+    from .pipeline.patches import iter_patch_batches
+
+    labels_map = read_labels_csv(labels_csv)
+    slide_dirs = nested_slide_dirs(nested_dir, labels_map, ext)
+    if not slide_dirs:
+        raise SystemExit(f"no labelled nested bags under {nested_dir}")
+    if encoder is None:
+        encoder = make_encoder(encoder_name, {"feature_dim": 1024}, {}, {},
+                               with_typing=False, pad_batch_to=batch_size,
+                               device=device)
+
+    def featurize(paths):
+        if not paths:
+            return np.zeros((0, 1024), np.float32)
+        return np.concatenate([encoder(pb)[0] for pb in
+                               iter_patch_batches(paths, batch_size)])
+
+    parts, labels, names = [], [], []
+    for name, d in slide_dirs:
+        low_paths, xy1, high_paths, xy2, parent, thumb = scan_nested_bag(d,
+                                                                         ext)
+        f1 = featurize(low_paths)
+        f2 = featurize(high_paths)
+        tf = featurize([thumb])[0] if thumb is not None else None
+        parts.append((f1, xy1, f2, xy2, parent, tf))
+        labels.append(labels_map[name])
+        names.append(name)
+
+    built = [build_tree_graph_levels(*p) for p in parts]
+    cap_n = bucket_size(max(int(t.node_mask.sum()) for t in built), base=64)
+    cap_e = bucket_size(max(int(t.edge_mask.sum()) for t in built), base=64)
+    trees = [build_tree_graph_levels(*p, node_capacity=cap_n,
+                                     edge_capacity=cap_e) for p in parts]
+    return trees, np.asarray(labels, np.int64), names
+
+
+def synthetic_trees(bags, coords, cell: int):
+    """Single-magnification bags as H2MIL trees with a synthesised parent
+    level, all at one capacity (bucket_size of the largest, base 64)."""
+    xys = [xy if xy is not None else grid_coords(len(b))
+           for b, xy in zip(bags, coords)]
+    built = [build_tree_graph(b, xy, cell=cell) for b, xy in zip(bags, xys)]
+    cap_n = bucket_size(max(int(t.node_mask.sum()) for t in built), base=64)
+    cap_e = bucket_size(max(int(t.edge_mask.sum()) for t in built), base=64)
+    return [build_tree_graph(b, xy, cell=cell, node_capacity=cap_n,
+                             edge_capacity=cap_e)
+            for b, xy in zip(bags, xys)]
+
+
+def h2mil_loss(logits: torch.Tensor, label: int) -> torch.Tensor:
+    """The reference's criterion: its GCN returns softmax(x) into
+    nn.CrossEntropyLoss, so the loss is the CE of a softmax."""
+    return -F.log_softmax(torch.softmax(logits, -1), -1)[0, label]
+
+
+def h2mil_train_step(model, opt, tree, label: int,
+                     generator: Optional[torch.Generator] = None
+                     ) -> torch.Tensor:
+    """One H2MIL step in training mode (dropout masks from `generator`);
+    IHPool's gradient-free weights get zero gradients, so the coupled L2
+    moves them as in JAX."""
+    model.train()
+    opt.zero_grad()
+    loss = h2mil_loss(model(tree, generator=generator), label)
+    loss.backward()
+    fill_dead_grads(model)
+    opt.step()
+    return loss.detach()
+
+
+def run_h2mil(args, bags, labels, coords,
+              init_variables: Optional[Dict] = None):
+    """H2MIL k-fold. With --nested-bags the trees come from the nested
+    image bags under --feats-dir (load_nested_trees), else from `bags`
+    (synthetic_trees); `init_variables` (a flax tree) replaces the seeded
+    init of every fold."""
+    dev = resolve_device(args.device)
+    rng = np.random.RandomState(args.seed)
+    if args.nested_bags:
+        trees, labels, _ = load_nested_trees(args.feats_dir, args.labels,
+                                             args.encoder, device=dev)
+        print(f"{len(trees)} nested bags, classes: {np.bincount(labels)}")
+    else:
+        trees = synthetic_trees(bags, coords, args.cell)
+    in_dim = int(trees[0].feats.shape[1])
+    on_dev = [tree_to_torch(t, dev) for t in trees]
+    folds = stratified_kfold_split(labels, args.folds)
+    gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
+
+    fold_metrics = []
+    for fi in range(args.folds):
+        train_idx, val_idx, test_idx = folds[fi]
+        print(f"fold {fi}: {len(train_idx)} train / {len(val_idx)} val / "
+              f"{len(test_idx)} test")
+        if len(test_idx) == 0:
+            print(f"fold {fi}: empty test split, skipping")
+            fold_metrics.append((float("nan"),) * 3)
+            continue
+        model = _init(H2MIL(in_dim, args.hidden, args.num_classes,
+                            k1=args.k1, k2=args.k2, dropout=args.dropout),
+                      args.seed, init_variables).to(dev)
+        opt = torch.optim.Adam(model.parameters(), lr=args.lr, eps=1e-8,
+                               weight_decay=5e-4)
+        for epoch in range(args.epochs):
+            for j in rng.permutation(len(train_idx)):
+                i = train_idx[j]
+                h2mil_train_step(model, opt, on_dev[i], int(labels[i]), gen)
+        model.eval()
+        with torch.no_grad():
+            probs = np.stack([torch.softmax(model(on_dev[i]), -1)[0]
+                              .cpu().numpy() for i in test_idx])
+        ys = labels[test_idx]
+        acc, f1, aucv = _fold_metrics(probs, ys, args.num_classes)
+        fold_metrics.append((acc, f1, aucv))
+        print(f"fold {fi}: acc {acc:.4f} f1 {f1:.4f} auc {aucv:.4f}")
+        if args.save_dir:
+            save_fold_params(args.save_dir, "h2mil", fi,
+                             convert.to_flax_variables(model),
+                             dict(model="h2mil", num_classes=args.num_classes,
+                                  hidden=args.hidden, k1=args.k1, k2=args.k2,
+                                  in_dim=in_dim))
+    return summarize("h2mil", fold_metrics)
+
+
+# ------------------------------------------------------------------------- #
 def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--model", choices=["abmil", "dsmil", "gtn", "h2mil"],
@@ -401,19 +565,21 @@ def parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = parser().parse_args(argv)
-    if args.model == "h2mil" or args.nested_bags:
-        raise NotImplementedError(
-            "H2MIL (--model h2mil, --nested-bags) is not ported yet: see "
-            "ROADMAP.md, item 6")
     if resolve_device(args.device).type == "cuda":
         set_cuda_numerics()
+    if args.nested_bags:
+        if args.model != "h2mil":
+            raise SystemExit("--nested-bags is an h2mil input mode")
+        return run_h2mil(args, None, None, None)
     bags, labels, names, coords = load_bags(args.feats_dir, args.labels)
     if not bags:
         raise SystemExit("no bags found")
     print(f"{len(bags)} bags, classes: {np.bincount(labels)}")
     if args.model in ("abmil", "dsmil"):
         return run_bag_models(args, bags, labels)
-    return run_gtn(args, bags, labels, coords)
+    if args.model == "gtn":
+        return run_gtn(args, bags, labels, coords)
+    return run_h2mil(args, bags, labels, coords)
 
 
 if __name__ == "__main__":
