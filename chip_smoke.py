@@ -2,11 +2,14 @@
 """Smoke run of the PyTorch port (`wsi_hgnn_tpu_torch`) on one NVIDIA GPU.
 
     python3 chip_smoke.py            # everything, one card, exit 0 when all holds
+    python3 chip_smoke.py --f32-timing   # only the f32 kernels at B = 128,
+                                         # the f32 backbone, mma.sync's rates
 
 1. Prints the card (`nvidia-smi` name and power limit) and builds every
    CUDA kernel from `wsi_hgnn_tpu_torch/csrc` with nvcc for sm_90a, one
-   nvcc per source, all at once; prints the bf16 DenseNet kernels' blocks
-   per SM and shared memory (`--ptxas` adds nvcc's register report).
+   nvcc per source, all at once; prints the DenseNet kernels' blocks per
+   SM and shared memory, bf16 and f32 (`--ptxas` adds nvcc's register
+   report).
 2. Kernel phases: each kernel against its plain PyTorch version at the
    main path's shapes (the bf16 dense layer at all 58 layers of a
    128-patch chunk; the KNN bit-equal on exact data, with ragged, tiny
@@ -94,7 +97,7 @@
    `train_mil --model gtn` on them; one H2MIL and one SimCLR step on the
    card against the CPU; ms per H2MIL step, per GraphCAM class and per
    SimCLR step, and the f32 kernels' ms per launch at B = 128 against
-   the f32 bound.
+   two bounds: the f32 peak outside the tensor cores and 3xTF32.
 The zoo (6.) also trains, evaluates and serves GCN with ASAP pooling
 (configs/BRCA/GCN_asap_classification.yml). The card-vs-CPU steps compare
 every parameter's gradient; a miss passes only where float64 explains it
@@ -122,9 +125,12 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-# Published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, dense FLOP/s
+# Published H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, dense FLOP/s.
+# "tf32x3": f32-accurate products as three TF32 tensor-core products
+# (hi*hi + hi*lo + lo*hi), a third of the 495 TF/s TF32 peak: the least
+# time the card can take for the f32 kernels' full-f32 products.
 PEAK_BYTES = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "tf32x3": 495e12 / 3}
 
 
 class CheckFailed(Exception):
@@ -282,8 +288,9 @@ def layer_operands(torch, dev, gen, h, c_end, k_in, dtype):
 
 
 # stated tolerances: f32 differs from the plain version by summation order
-# only; bf16 outputs carry 8 mantissa bits and v is rounded to bf16 before
-# the 3x3 conv, so one flipped rounding moves y by a few bf16 ulps
+# and the 3xTF32 products' dropped lo*lo terms (about 2^-22 of a product);
+# bf16 outputs carry 8 mantissa bits and v is rounded to bf16 before the
+# 3x3 conv, so one flipped rounding moves y by a few bf16 ulps
 TOL = {"float32": (1e-4, 1e-4), "bfloat16": (2e-2, 3e-2)}  # (rtol, atol)
 
 
@@ -1582,14 +1589,36 @@ def f32_kernel_timing(torch, dn, dev, gen, card):
     """SimCLR's frozen backbone shapes in f32 at B = CHUNK (two views of a
     64-image batch): every dense layer of each block and the three
     transitions, each against its plain version on the same operands,
-    timed by CUDA events against the bound at the f32 peak. Returns the
-    summary rows {kernel: {ms, bound_ms, bound_by, plain_ms}}."""
+    timed by CUDA events against two bounds from the same bytes: the
+    operations at the f32 peak outside the tensor cores (67 TF/s) and at
+    the 3xTF32 rate (495 / 3 TF/s). Returns the summary rows {kernel: {ms,
+    bound_ms, bound_by (f32), bound_tf32x3_ms, bound_tf32x3_by,
+    plain_ms}}."""
     f32 = torch.float32
+    peaks = ("float32", "tf32x3")
+
+    def line(kernel, shape, n, ms, bounds, plain_ms):
+        per = ms / n
+        parts = []
+        for peak in peaks:
+            b_ms, b_by = mean_bound(bounds[peak])
+            parts.append(f"bound at {peak} {b_ms:.4g} ms ({b_by}), share "
+                         f"{b_ms / per:.4g}")
+        log(f"timing {kernel} float32 {shape}: {per:.4g} ms/launch x {n}; "
+            f"{'; '.join(parts)}; plain {plain_ms:.4g} ms/launch [{card}]")
+
+    def summary(ms, n, bounds, plain_ms):
+        row = dict(ms=ms / n, plain_ms=plain_ms / n)
+        for peak, key in zip(peaks, ("bound", "bound_tf32x3")):
+            row[f"{key}_ms"], row[f"{key}_by"] = mean_bound(bounds[peak])
+        return row
+
     out = {}
-    all_bounds, total_ms, total_plain, n_all = [], 0.0, 0.0, 0
+    all_bounds = {peak: [] for peak in peaks}
+    total_ms, total_plain, n_all = 0.0, 0.0, 0
     for h, ch, n_layers in BLOCKS:
         c_end = ch + 32 * n_layers
-        layers, bounds = [], []
+        layers, bounds = [], {peak: [] for peak in peaks}
         for li in range(n_layers):
             k_in = ch + 32 * li
             ops = layer_operands(torch, dev, gen, h, c_end, k_in, f32)
@@ -1597,9 +1626,10 @@ def f32_kernel_timing(torch, dn, dev, gen, card):
             x = ops[0] if not layers else layers[0][0]
             layers.append((x,) + ops[1:] + (k_in,))
             px = CHUNK * h * h
-            bounds.append(bound(
-                px * (k_in + 32) * 4 + (k_in * 128 + 128 * 288) * 4,
-                2.0 * px * (k_in * 128 + 9 * 128 * 32), "float32"))
+            for peak in peaks:
+                bounds[peak].append(bound(
+                    px * (k_in + 32) * 4 + (k_in * 128 + 128 * 288) * 4,
+                    2.0 * px * (k_in * 128 + 9 * 128 * 32), peak))
 
         def run(fn):
             def go():
@@ -1607,18 +1637,18 @@ def f32_kernel_timing(torch, dn, dev, gen, card):
                     fn(x, a1, b1, w1f, b2, w2cat,
                        n_active_groups=-(-k_in // 128), slot=k_in // 32)
             return go
-        ms = cuda_ms(run(dn.dense_layer_fused), reps=1, warmup=1)
-        plain = cuda_ms(run(dn.dense_layer_reference), reps=1, warmup=0)
-        shape_line("dense_layer_fused", f"float32 [{CHUNK},{h},{h},{c_end}]",
-                   n_layers, ms, bounds, card, plain / n_layers)
-        all_bounds += bounds
+        ms = cuda_ms(run(dn.dense_layer_fused), reps=3, warmup=1)
+        plain = cuda_ms(run(dn.dense_layer_reference), reps=3, warmup=1)
+        line("dense_layer_fused", f"[{CHUNK},{h},{h},{c_end}]", n_layers, ms,
+             bounds, plain / n_layers)
+        for peak in peaks:
+            all_bounds[peak] += bounds[peak]
         total_ms, total_plain, n_all = (total_ms + ms, total_plain + plain,
                                         n_all + n_layers)
-    b_ms, b_by = mean_bound(all_bounds)
-    out["dense_layer_fused"] = dict(ms=total_ms / n_all, bound_ms=b_ms,
-                                    bound_by=b_by,
-                                    plain_ms=total_plain / n_all)
-    bounds, total_ms, total_plain = [], 0.0, 0.0
+    out["dense_layer_fused"] = summary(total_ms, n_all, all_bounds,
+                                       total_plain)
+    bounds = {peak: [] for peak in peaks}
+    total_ms, total_plain = 0.0, 0.0
     for h, c in ((64, 256), (32, 512), (16, 1024)):
         kw = dict(generator=gen, device=dev)
         x = torch.randn(CHUNK, h, h, c, **kw)
@@ -1628,24 +1658,82 @@ def f32_kernel_timing(torch, dn, dev, gen, card):
         ok, err = close(torch, dn.transition_fused(x, a, b, w),
                         dn.transition_reference(x, a, b, w), "float32")
         check(ok, f"transition f32 mismatch H={h} C={c}: max|err| {err:.3g}")
+        log(f"transition [{CHUNK},{h},{h},{c}] float32: max|err| {err:.3g} "
+            f"(rtol,atol {TOL['float32']})")
         m = CHUNK * (h // 2) * (h // 2)
-        bd = bound(x.numel() * 4 + w.numel() * 4 + m * (c // 2) * 4 + 8 * c,
-                   2.0 * m * c * (c // 2) + 4.0 * m * 4 * c, "float32")
-        bounds.append(bd)
-        ms = cuda_ms(lambda: dn.transition_fused(x, a, b, w), reps=3)
-        plain = cuda_ms(lambda: dn.transition_reference(x, a, b, w), reps=3)
-        shape_line("transition_fused", f"float32 [{CHUNK},{h},{h},{c}]->"
-                   f"{c // 2}", 1, ms, [bd], card, plain)
+        one = {peak: [bound(
+            x.numel() * 4 + w.numel() * 4 + m * (c // 2) * 4 + 8 * c,
+            2.0 * m * c * (c // 2) + 4.0 * m * 4 * c, peak)] for peak in peaks}
+        ms = cuda_ms(lambda: dn.transition_fused(x, a, b, w), reps=10)
+        plain = cuda_ms(lambda: dn.transition_reference(x, a, b, w), reps=10)
+        line("transition_fused", f"[{CHUNK},{h},{h},{c}]->{c // 2}", 1, ms,
+             one, plain)
+        for peak in peaks:
+            bounds[peak] += one[peak]
         total_ms, total_plain = total_ms + ms, total_plain + plain
-    b_ms, b_by = mean_bound(bounds)
-    out["transition_fused"] = dict(ms=total_ms / 3, bound_ms=b_ms,
-                                   bound_by=b_by, plain_ms=total_plain / 3)
+    out["transition_fused"] = summary(total_ms, 3, bounds, total_plain)
     for name, r in out.items():
         log(f"timing {name} float32 at B={CHUNK} (SimCLR's backbone): "
-            f"{r['ms']:.4g} ms/launch (bound {r['bound_ms']:.4g} ms by "
-            f"{r['bound_by']}, share {r['bound_ms'] / r['ms']:.4g}; plain "
-            f"{r['plain_ms']:.4g} ms) [{card}]")
+            f"{r['ms']:.4g} ms/launch; bound {r['bound_ms']:.4g} ms at f32 "
+            f"({r['bound_by']}, share {r['bound_ms'] / r['ms']:.4g}), "
+            f"{r['bound_tf32x3_ms']:.4g} ms at 3xTF32 "
+            f"({r['bound_tf32x3_by']}, share "
+            f"{r['bound_tf32x3_ms'] / r['ms']:.4g}); plain "
+            f"{r['plain_ms']:.4g} ms [{card}]")
     return out
+
+
+def backbone_f32_timing(torch, dev, card, reps: int = 5):
+    """SimCLR's frozen backbone alone: one seeded KimiaNet forward through
+    the f32 kernel chain (`kimianet_fused_apply`) at B = CHUNK views of
+    256 x 256, CUDA events, mean of `reps`."""
+    from wsi_hgnn_tpu_torch import convert
+    from wsi_hgnn_tpu_torch.models.featurizers import (KimiaNet,
+                                                       fuse_kimianet,
+                                                       kimianet_fused_apply)
+
+    model = convert.init_flax_like_(KimiaNet(), seed=5).eval()
+    fp = fuse_kimianet(convert.to_flax_variables(model), dtype=torch.float32,
+                       device=dev)
+    x = torch.rand(CHUNK, PATCH, PATCH, 3, device=dev,
+                   generator=torch.Generator(device=dev).manual_seed(6))
+    with torch.inference_mode():
+        ms = cuda_ms(lambda: kimianet_fused_apply(fp, x), reps=reps)
+    log(f"timing kimianet f32 forward [{CHUNK},{PATCH},{PATCH},3] (SimCLR's "
+        f"frozen backbone, 58 + 3 kernel launches): {ms:.2f} ms (CUDA "
+        f"events, mean of {reps}) [{card}]")
+    return ms
+
+
+def mma_rate(torch, dev, card, iters: int = 2000):
+    """Peak issue rate of mma.sync, TF32 and bf16: csrc/mma_rate.cu
+    (independent MMAs from registers, no loads) at one and two blocks of
+    256, 512 and 1024 threads per SM, CUDA events, mean of 3. The TF32
+    rate bounds the f32 kernels' 3xTF32 products through mma.sync (a third
+    of it); the data-sheet TF32 peak is wgmma's."""
+    import ctypes
+    from wsi_hgnn_tpu_torch.kernels import _build
+
+    fn = _build.load("mma_rate").mma_rate
+    fn.argtypes = [ctypes.c_void_p] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    out = torch.empty(2 * sms * 1024, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for kind, per_mma in (("tf32", 2 * 16 * 8 * 8), ("bf16", 2 * 16 * 8 * 16)):
+        for threads in (256, 512, 1024):
+            for per_sm in (1, 2):
+                blocks = per_sm * sms
+
+                def launch(n=iters):
+                    _build.check(fn(out.data_ptr(), kind == "tf32", blocks,
+                                    threads, n, stream), "mma_rate")
+                launch(10)
+                ms = cuda_ms(launch, reps=3, warmup=0)
+                # every warp issues 8 MMAs an iteration
+                ops = blocks * (threads // 32) * iters * 8 * per_mma
+                log(f"mma.sync {kind}: {blocks} blocks x {threads} threads: "
+                    f"{ops / ms / 1e9:.1f} TF/s [{card}]")
 
 
 def graphcam_card_vs_cpu(torch, np, dev, pkl, bag):
@@ -2774,6 +2862,12 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--ptxas", action="store_true",
                     help="print nvcc -Xptxas -v for every kernel")
+    ap.add_argument("--f32-timing", action="store_true",
+                    help="build, then only check and time the f32 dense "
+                         "layer and transition at B = 128, SimCLR's f32 "
+                         "backbone and mma.sync's peak rates (an A/B of two "
+                         "trees runs this script in each); prints no result "
+                         "lines")
     args = ap.parse_args()
 
     import torch
@@ -2806,14 +2900,27 @@ def main() -> int:
     for name, text in logs.items():
         if text.strip():
             log(f"--- nvcc {name} ---\n{text.strip()}")
-    for name in ("dense_layer", "transition"):
-        blocks, smem = dn.bf16_occupancy(name)
-        log(f"{name} bf16 kernel: {blocks} block(s) of 256 threads per SM, "
-            f"{smem} bytes of shared memory per block [{card}]")
+    # an older tree (the A/B's parent) has the bf16 query only
+    if hasattr(dn, "occupancy"):
+        for name in ("dense_layer", "transition"):
+            for dtype in (torch.bfloat16, torch.float32):
+                blocks, smem = dn.occupancy(name, dtype)
+                log(f"{name} {dtype} kernel: {blocks} block(s) of 256 "
+                    f"threads per SM, {smem} bytes of shared memory per "
+                    f"block [{card}]")
     set_cuda_numerics()
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(0)
     gen_dev = torch.Generator(device=dev).manual_seed(0)
+    if args.f32_timing:
+        t0 = time.perf_counter()
+        f32_kernel_timing(torch, dn, dev, gen_dev, card)
+        backbone_f32_timing(torch, dev, card)
+        if (ROOT / "wsi_hgnn_tpu_torch" / "csrc" / "mma_rate.cu").exists():
+            mma_rate(torch, dev, card)
+        log(f"chip_smoke: f32 timing took {time.perf_counter() - t0:.1f} s "
+            f"(in {ROOT})")
+        return 0
 
     results = {}
     results["knn_l2_fused"] = knn_phase(torch, kn, knn_ops, dev, gen, card)

@@ -1,7 +1,8 @@
 """Port parity: DenseNet kernels' plain versions and KimiaNet
 (wsi_hgnn_tpu_torch/kernels/densenet.py, models/featurizers/densenet.py)
 against the JAX package's Pallas kernels (interpret mode) and flax
-KimiaNet, on the CPU, plus the weight bridge."""
+KimiaNet, on the CPU, plus the weight bridge and a numpy emulation of
+the f32 kernels' 3xTF32 products."""
 import numpy as np
 import pytest
 import torch
@@ -85,6 +86,63 @@ def test_transition_matches_pallas_f32(h, c):
     np.testing.assert_allclose(buf[..., :c // 2].numpy(), want, rtol=1e-4,
                                atol=1e-5)
     assert not buf[..., c // 2:].any()
+
+
+# The f32 kernels' stated tolerance (tests/test_torch_gpu.py::TOL)
+F32_TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+def planted(rng, shape, scale=1.0):
+    """+-(1 + j 2^-13), j in [1, 64): mantissa bits below TF32's 10 that
+    single-pass TF32 drops; times `scale` (the weights' sqrt(2/K))."""
+    j = rng.randint(1, 64, size=shape)
+    sign = rng.choice([-1.0, 1.0], size=shape)
+    return (sign * (1.0 + j * 2.0 ** -13) * scale).astype(np.float32)
+
+
+def tf32_rna(x):
+    """f32 -> TF32 (10 mantissa bits), to nearest, ties away from zero:
+    `cvt.rna.tf32.f32` on finite values."""
+    bits = np.asarray(x, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(
+        np.float32)
+
+
+def mma_sum(pairs, k):
+    """sum over pairs (a [M, K], b [K, N]) as m16n8k8 MMAs issue them: per
+    8-deep k step, each pair's exact product added to an f32 accumulator
+    in the given order."""
+    acc = np.zeros((pairs[0][0].shape[0], pairs[0][1].shape[1]), np.float32)
+    for k0 in range(0, k, 8):
+        for a, b in pairs:
+            acc = (acc.astype(np.float64)
+                   + a[:, k0:k0 + 8].astype(np.float64)
+                   @ b[k0:k0 + 8].astype(np.float64)).astype(np.float32)
+    return acc
+
+
+@pytest.mark.parametrize("k", [992, 1152, 1024])
+def test_3xtf32_split_holds_f32_tolerance_where_tf32_fails(k):
+    """The f32 kernels' products (csrc/common.cuh::mma_3xtf32) on planted
+    operands at the main path's largest K: the dense layer's 1x1 conv (k_in
+    992), its 3x3 conv (9 x 128) and the last transition (C 1024). hi =
+    rna(x), lo = rna(x - hi), lo*hi + hi*lo + hi*hi stays within the card
+    tests' f32 tolerance of float64; single-pass TF32 (hi*hi) does not, so
+    the planted operands tell the two apart."""
+    rng = np.random.RandomState(k)
+    a = planted(rng, (64, k))
+    b = planted(rng, (k, 32), np.sqrt(2.0 / k))
+    want = a.astype(np.float64) @ b.astype(np.float64)
+    a_hi, b_hi = tf32_rna(a), tf32_rna(b)
+    a_lo, b_lo = tf32_rna(a - a_hi), tf32_rna(b - b_hi)
+    assert not np.array_equal(a_hi, a)             # bits below TF32's
+    three = mma_sum([(a_lo, b_hi), (a_hi, b_lo), (a_hi, b_hi)], k)
+    one = mma_sum([(a_hi, b_hi)], k)
+    bound = F32_TOL["atol"] + F32_TOL["rtol"] * np.abs(want)
+    np.testing.assert_allclose(three, want, **F32_TOL)
+    assert np.abs(three - want).max() < 0.05 * bound.min()
+    missed = np.abs(one - want) > bound
+    assert missed.mean() > 0.5, missed.mean()      # measured 0.66-0.70
 
 
 def test_fold_bn_matches_jax():

@@ -41,8 +41,10 @@ import port_threads  # noqa: F401  (torch threads per test worker)
 pytestmark = pytest.mark.gpu
 ROOT = Path(__file__).resolve().parents[1]
 
-# f32: summation order only; bf16: outputs carry 8 mantissa bits and the
-# bottleneck is rounded to bf16 before the 3x3 conv
+# f32: summation order and the 3xTF32 products' dropped lo*lo terms (about
+# 2^-22 of a product; tests/test_torch_densenet.py emulates the split on
+# operands single-pass TF32 fails); bf16: outputs carry 8 mantissa bits and
+# the bottleneck is rounded to bf16 before the 3x3 conv
 TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4),
        torch.bfloat16: dict(rtol=2e-2, atol=3e-2)}
 
@@ -202,6 +204,168 @@ def test_transition_kernel_matches_plain(cuda, dtype, h, c, bsz):
                                kdn.transition_reference(x, a, b, w).float(),
                                **TOL[dtype])
     assert not out[..., c // 2:].any()
+
+
+@pytest.mark.parametrize("h,w,k_in,c_end,b", [
+    # C_end % 4 != 0: 4-byte copies and stores
+    (16, 16, 192, 226, 2), (8, 8, 64, 97, 3),
+    # non-square images: ragged 16x8 tiles in each direction
+    (20, 13, 96, 160, 2), (5, 11, 32, 64, 3)])
+def test_dense_layer_f32_ragged_matches_plain(cuda, h, w, k_in, c_end, b):
+    """The f32 kernel on shapes the main path does not give it: rows
+    that are not 16-byte multiples, and images whose sides cut its 16x8
+    output tiles (and the whole-image tile below 8) raggedly."""
+    ops = list(_layer(cuda, torch.float32, h=h, c_end=c_end, k_in=k_in, b=b))
+    g = torch.Generator().manual_seed(3)
+    ops[0] = torch.zeros(b, h, w, c_end)
+    ops[0][..., :k_in] = torch.randn(b, h, w, k_in, generator=g)
+    ops[0] = ops[0].to(cuda)
+    kw = dict(n_active_groups=-(-k_in // 128), slot=k_in // 32)
+    got = kdn.dense_layer_fused(ops[0].clone(), *ops[1:], **kw)
+    want = kdn.dense_layer_reference(ops[0].clone(), *ops[1:], **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got[..., :k_in], ops[0][..., :k_in])
+    assert not got[..., k_in + 32:].any()
+    torch.testing.assert_close(got[..., k_in:k_in + 32],
+                               want[..., k_in:k_in + 32],
+                               **TOL[torch.float32])
+
+
+@pytest.mark.parametrize("h,w,c,bsz", [
+    # C % 8 != 0 (4-byte copies), C/2 odd, C not a multiple of the
+    # 16-channel chunk
+    (8, 8, 36, 3), (6, 6, 50, 2), (8, 8, 40, 2),
+    # odd and non-square sides (the last row/column is dropped), and a
+    # batch tail across the 128-pixel tiles
+    (7, 9, 64, 3), (10, 14, 96, 5)])
+def test_transition_f32_ragged_matches_plain(cuda, h, w, c, bsz):
+    g = torch.Generator().manual_seed(4)
+    x = torch.randn(bsz, h, w, c, generator=g).to(cuda)
+    a = (torch.rand(1, c, generator=g) + 0.5).to(cuda)
+    b = (torch.randn(1, c, generator=g) * 0.1).to(cuda)
+    wt = (torch.randn(c, c // 2, generator=g) * (2.0 / c) ** 0.5).to(cuda)
+    want = kdn.transition_reference(x, a, b, wt)
+    torch.testing.assert_close(kdn.transition_fused(x, a, b, wt), want,
+                               **TOL[torch.float32])
+    out = torch.zeros(bsz, h // 2, w // 2, c // 2 + 3, device=cuda)
+    kdn.transition_fused(x, a, b, wt, out=out)
+    torch.testing.assert_close(out[..., :c // 2], want, **TOL[torch.float32])
+    assert not out[..., c // 2:].any()
+
+
+@pytest.mark.parametrize("h,k_in,c_end", [
+    # the last layer of each dense block
+    (64, 224, 256), (32, 480, 512), (16, 992, 1024), (8, 992, 1024)])
+def test_dense_layer_f32_at_simclr_batch_matches_plain(cuda, h, k_in, c_end):
+    """B = 128, SimCLR's backbone batch: every output tile and image of a
+    launch the main path makes."""
+    ops = _layer(cuda, torch.float32, h=h, c_end=c_end, k_in=k_in, b=128)
+    kw = dict(n_active_groups=-(-k_in // 128), slot=k_in // 32)
+    got = kdn.dense_layer_fused(ops[0].clone(), *ops[1:], **kw)
+    want = kdn.dense_layer_reference(ops[0].clone(), *ops[1:], **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got[..., :k_in], ops[0][..., :k_in])
+    assert not got[..., k_in + 32:].any()
+    torch.testing.assert_close(got[..., k_in:k_in + 32],
+                               want[..., k_in:k_in + 32],
+                               **TOL[torch.float32])
+
+
+@pytest.mark.parametrize("h,c", [(64, 256), (32, 512), (16, 1024)])
+def test_transition_f32_at_simclr_batch_matches_plain(cuda, h, c):
+    g = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.randn(128, h, h, c, generator=g, device=cuda)
+    a = torch.rand(1, c, generator=g, device=cuda) + 0.5
+    b = torch.randn(1, c, generator=g, device=cuda) * 0.1
+    wt = torch.randn(c, c // 2, generator=g, device=cuda) * (2.0 / c) ** 0.5
+    torch.testing.assert_close(kdn.transition_fused(x, a, b, wt),
+                               kdn.transition_reference(x, a, b, wt),
+                               **TOL[torch.float32])
+
+
+def _planted(rng, shape, scale=1.0, signed=True):
+    """+-(1 + j 2^-13), j in [1, 64): mantissa bits below TF32's 10 (see
+    tests/test_torch_densenet.py's emulation of the split on them)."""
+    j = rng.randint(1, 64, size=shape)
+    sign = rng.choice([-1.0, 1.0], size=shape) if signed else 1.0
+    return torch.from_numpy(
+        (sign * (1.0 + j * 2.0 ** -13) * scale).astype(np.float32))
+
+
+def _misses(got, want, tol):
+    return ((got - want).abs() > tol["atol"] + tol["rtol"] * want.abs()).any()
+
+
+def _plain_in_tf32(fn):
+    """fn() with torch's f32 products and convolutions in TF32, the flags
+    restored after."""
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        out = fn()
+        torch.cuda.synchronize()
+        return out
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = flags
+
+
+def test_dense_layer_f32_planted_operands_need_3xtf32(cuda):
+    """x and weights carry mantissa bits below TF32's, at the main path's
+    largest K (k_in 992 into the 1x1 conv, 9 x 128 into the 3x3): the
+    kernel stays within the f32 tolerance; torch's own products in TF32
+    on the same operands fall outside it."""
+    h, k_in, c_end, b = 8, 992, 1024, 4
+    rng = np.random.RandomState(6)
+    x = torch.zeros(b, h, h, c_end)
+    x[..., :k_in] = _planted(rng, (b, h, h, k_in), signed=False)
+    a1 = torch.zeros(1, c_end)
+    a1[0, :k_in] = 1.0                              # u = x exactly
+    b1 = torch.zeros(1, c_end)
+    w1f = torch.zeros(c_end, 128)
+    w1f[:k_in] = _planted(rng, (k_in, 128), (2.0 / k_in) ** 0.5)
+    b2 = torch.from_numpy(rng.randn(1, 128).astype(np.float32) * 0.1)
+    w2cat = _planted(rng, (128, 288), (2.0 / 1152) ** 0.5)
+    ops = [t.to(cuda) for t in (x, a1, b1, w1f, b2, w2cat)]
+    kw = dict(n_active_groups=8, slot=k_in // 32)
+    got = kdn.dense_layer_fused(ops[0].clone(), *ops[1:], **kw)
+    want = kdn.dense_layer_reference(ops[0].clone(), *ops[1:], **kw)
+    tf32 = _plain_in_tf32(lambda: kdn.dense_layer_reference(
+        ops[0].clone(), *ops[1:], **kw))
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.backends.cudnn.allow_tf32 is False
+    sl = slice(k_in, k_in + 32)
+    torch.testing.assert_close(got[..., sl], want[..., sl],
+                               **TOL[torch.float32])
+    assert _misses(tf32[..., sl], want[..., sl], TOL[torch.float32])
+
+
+def test_transition_f32_planted_operands_need_3xtf32(cuda):
+    """The same at the last transition's C = 1024 (a = 1, b = 0, so the
+    pooled u keeps the planted bits): the kernel within the f32
+    tolerance, torch's TF32 product outside it."""
+    h, c, bsz = 16, 1024, 2
+    rng = np.random.RandomState(7)
+    x = _planted(rng, (bsz, h, h, c), signed=False).to(cuda)
+    a = torch.ones(1, c, device=cuda)
+    b = torch.zeros(1, c, device=cuda)
+    wt = _planted(rng, (c, c // 2), (2.0 / c) ** 0.5).to(cuda)
+    got = kdn.transition_fused(x, a, b, wt)
+    want = kdn.transition_reference(x, a, b, wt)
+    tf32 = _plain_in_tf32(lambda: kdn.transition_reference(x, a, b, wt))
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    torch.testing.assert_close(got, want, **TOL[torch.float32])
+    assert _misses(tf32, want, TOL[torch.float32])
+
+
+@pytest.mark.parametrize("name", ["dense_layer", "transition"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_densenet_kernels_fit_an_sm(cuda, name, dtype):
+    """At least one block per SM, within the H100's 227 KB a block."""
+    blocks, smem = kdn.occupancy(name, dtype)
+    assert blocks >= 1 and 0 < smem <= 232448
 
 
 def test_kernel_wrappers_raise_instead_of_falling_back(cuda):

@@ -3,18 +3,21 @@ and their plain PyTorch versions.
 
 Counterparts of wsi_hgnn_tpu/ops/pallas_densenet.py::dense_layer_fused and
 ::transition_fused. The kernels (`csrc/dense_layer.cu`,
-`csrc/transition.cu`) work on NHWC block buffers with f32 accumulation.
-bf16 storage (the main path) runs on the tensor cores
-(`mma.sync.aligned.m16n8k16` bf16 with f32 accumulation, operands staged
-by 16-byte `cp.async`): the dense layer computes the bottleneck once per
-in-image halo pixel of a whole-image (H <= 16) or 16x16 tile and the 3x3
-conv as an implicit GEMM over the halo; the transition multiplies the
-unpooled pixels and pools the accumulators. On the H100 the dense layer
-is bound by operations at H=64 and by bytes from H=16 down, the
-transition by bytes; the kernel sources' notes give the figures. f32
-storage keeps a CUDA-core design for exact-semantics checks. Each GEMM
-operand is rounded to the storage type first, as the TPU kernels do; the
-TPU kernel's extra rounding of the 3x3 conv's tap products
+`csrc/transition.cu`) work on NHWC block buffers with f32 accumulation,
+on the tensor cores in both storage types. bf16 (the serving path):
+`mma.sync.aligned.m16n8k16` with operands staged by 16-byte `cp.async`;
+the dense layer computes the bottleneck once per in-image halo pixel of a
+whole-image (H <= 16) or 16x16 tile and the 3x3 conv as an implicit GEMM
+over the halo; the transition multiplies the unpooled pixels and pools
+the accumulators. On the H100 the dense layer is bound by operations at
+H=64 and by bytes from H=16 down, the transition by bytes. f32 (SimCLR's
+frozen KimiaNet and `--extract`): full-f32 products in 3xTF32 on
+`mma.sync.aligned.m16n8k8` (each operand split into TF32 hi and lo,
+lo*hi + hi*lo + hi*hi), 16x8 dense-layer tiles, the transition pooled
+first; bound by operations at 3xTF32 but for the first two transitions
+(bytes). The kernel sources' notes give the designs and figures. Each
+GEMM operand is rounded to the storage type first, as the TPU kernels
+do; the TPU kernel's extra rounding of the 3x3 conv's tap products
 (pallas_densenet.py:72) is not copied, so bf16 comparisons with the JAX
 package allow for it. Operands on the card must be contiguous and
 16-byte aligned.
@@ -106,11 +109,12 @@ def _kernel(name: str, suffix: str):
     return fn
 
 
-def bf16_occupancy(name: str) -> tuple[int, int]:
-    """(blocks per SM, shared memory bytes per block) of the bf16 kernel of
-    `name` ("dense_layer" or "transition"), as the CUDA runtime reports
-    them on the current card."""
-    fn = getattr(_build.load(name), f"{name}_bf16_occupancy")
+def occupancy(name: str, dtype: torch.dtype) -> tuple[int, int]:
+    """(blocks per SM, shared memory bytes per block) of the kernel of
+    `name` ("dense_layer" or "transition") for storage `dtype` (bf16 or
+    f32, the main path's instantiation), as the CUDA runtime reports them
+    on the current card."""
+    fn = getattr(_build.load(name), f"{name}_{_DTYPES[dtype]}_occupancy")
     fn.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
     fn.restype = ctypes.c_int
     blocks, smem = ctypes.c_int(0), ctypes.c_int(0)
