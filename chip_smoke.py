@@ -26,7 +26,7 @@
    and a torch.profiler pass over the last request: the device's busy
    share and the kernels that took the most device time.
 5. The training slice at the same width, read from that config file:
-   12 seeded synthetic slides of 1000-3000 patches whose graphs are
+   12 seeded synthetic slides of 800-1600 patches whose graphs are
    built on the card (one KNN launch each) and written as `.npz`;
    `GNNTrainer` for 2 epochs on the lattice, `HomoGraphEvaluator` on the
    checkpoint it wrote, `SlidePredictor(checkpoint_path=)` on the test
@@ -79,7 +79,7 @@
    the heatmaps written; then a 10 x 10-tile window of the slide as a
    second layout, explained on the card and on the CPU: the scores to
    1e-4, the AUCs equal; ms per slide for HetGEM, GEM on GCN and a
-   100-step GNNExplainer on a seeded 2048-node slide.
+   100-step GNNExplainer on a seeded 1024-node slide.
 11. MIL (mil, after 6.): `python -m wsi_hgnn_tpu_torch.train_mil` in
    process on the training cohort's 12 slides as bags, 2 folds x 2
    epochs of abmil, dsmil with ReMix 'cov' and gtn (its fold pickles
@@ -98,6 +98,16 @@
    card against the CPU; ms per H2MIL step, per GraphCAM class and per
    SimCLR step, and the f32 kernels' ms per launch at B = 128 against
    two bounds: the f32 peak outside the tensor cores and 3xTF32.
+13. Several devices (parallel, a fourth group): the 'kimia' (with
+   HoVer-Net typing) and 'hover' encoders sharded over a device list that
+   repeats the card, on a 130-patch chunk (padded to 256, 128 a device),
+   against the single-device encoder, and the slide graph of the sharded
+   features; a gloo world of 2 spawned ranks on the card: the
+   edge-sharded HEAT4 and GCN steps (each rank half of two 1024-node
+   slides' edge store) and the data-parallel GCN step (a slide a rank),
+   every gradient against the single-card step (judged by float64 where
+   1e-4 misses); an NCCL world of 1: the edge-sharded step against the
+   plain one.
 The zoo (6.) also trains, evaluates and serves GCN with ASAP pooling
 (configs/BRCA/GCN_asap_classification.yml). The card-vs-CPU steps compare
 every parameter's gradient; a miss passes only where float64 explains it
@@ -109,7 +119,8 @@ and read after it.
 The line before the last is the kernels JSON (launches summed over the
 served requests, the server traffic, the training slice, the zoo's
 served slides, the constructions, the explanation, the MIL runs, the
-nested bags' encoder and SimCLR's pretraining and extraction), the last
+nested bags' encoder, SimCLR's pretraining and extraction, and the
+sharded encoders and the rank steps' graphs), the last
 line the device JSON. Any
 failed check exits non-zero. Imports nothing of JAX.
 """
@@ -858,7 +869,8 @@ def profile_span(torch, fn, what: str, card: str, top: int = 12):
 # ---------------------------------------------------------------------------
 HEAT4_CONFIG = "configs/BRCA/HEAT4_kimia_classification.yml"
 TRAIN_SPLITS = (("train", 6), ("val", 3), ("test", 3))   # slides per split
-TRAIN_N = (1000, 3000)     # patches per synthetic slide, drawn uniformly
+TRAIN_N = (800, 1600)      # patches per synthetic slide, drawn uniformly
+                           # (cut to pay for the parallel group, PERF.md §4)
 TRAIN_EPOCHS = 2
 
 
@@ -1426,7 +1438,7 @@ def mil_step_on_card_vs_cpu(torch, dev, kind, model, bag, edges, cap):
 
 def mil_phase(torch, dev, card, kernels, root: Path, splits):
     """`python -m wsi_hgnn_tpu_torch.train_mil` (in process, on the card)
-    over the training cohort's 12 slides as bags (their 1000-3000 x 1024
+    over the training cohort's 12 slides as bags (their 800-1600 x 1024
     features, graphs built on the card), 2 folds and 2 epochs each, for
     abmil, dsmil with ReMix 'cov' (1 prototype: each prototype's shift
     vectors are a 1024-d multivariate normal draw on the host) and gtn
@@ -2480,7 +2492,8 @@ def tile_build_phase(torch, dev, card, kernels, root: Path):
 # the annotation traces the third tissue ellipse of write_tissue_slide
 # (centre and radii as fractions of the slide's width and height)
 EXPLAIN_ELLIPSE = (0.50, 0.22, 0.24, 0.18)
-EXPLAIN_N = 2048            # nodes of the timed slide
+EXPLAIN_N = 1024            # nodes of the timed slide (cut to pay for the
+                            # parallel group, PERF.md §4)
 GNN_EXPLAINER_EPOCHS = 100  # the explainer's default
 
 
@@ -2632,7 +2645,7 @@ def explain_phase(torch, dev, card, kernels, root: Path, tiled):
     (gradcheck.output_spread; card and CPU each round), that atol under a
     hundredth of the median score, all-zero and sign-flipped scores
     failing the same check, the AUCs equal.
-    Then timings on a seeded 2048-node slide graph built on the card:
+    Then timings on a seeded EXPLAIN_N-node slide graph built on the card:
     HetGemExplainer on HEAT4, GemExplainer on GCN at its BRCA width, a
     100-step GNNExplainer on HEAT4; ms per slide, peak memory, and the
     device busy share of the 586-node explanation. Returns the launch
@@ -2789,7 +2802,7 @@ def explain_phase(torch, dev, card, kernels, root: Path, tiled):
         f"the same check on all-zero scores {over_zero:.4g}, on "
         f"sign-flipped scores {over_flip:.4g} (both must exceed 1) [{card}]")
 
-    # ---- timings on a 2048-node slide ----------------------------------
+    # ---- timings on an EXPLAIN_N-node slide -----------------------------
     rng = np.random.RandomState(31)
     feat = rng.randn(1, EXPLAIN_N, 1024).astype(np.float32)
     types = rng.randint(0, N_TYPES, (1, EXPLAIN_N))
@@ -2856,6 +2869,434 @@ def explain_phase(torch, dev, card, kernels, root: Path, tiled):
         + f" [{card}]")
     log(f"explain phase took {time.perf_counter() - t_phase:.1f} s")
     return launches
+
+
+# ---------------------------------------------------------------------------
+# parallel group: the featurizer's data parallelism, edge sharding and the
+# data-parallel step, on one card
+# ---------------------------------------------------------------------------
+PAR_PATCHES = 130      # one chunk: padded to 256 (2 x 128) over 2 devices
+PAR_DEVICES = 2        # the device list repeats the one card
+PAR_FEAT_RTOL = 1e-3   # relative L2 of sharded against single-device features
+BF16_FEAT_RTOL = 0.1   # bf16 features against another batch's (PERF.md §2)
+PAR_NODES = 1024       # nodes of each of the two slides of the rank steps
+PAR_WORLD = 2          # gloo ranks, both on the one card
+GCN_CONFIG = "configs/BRCA/GCN_kimia_classification.yml"
+
+
+def _par_rank(rank: int, world: int, init: str, out_dir: str) -> None:
+    """One rank of the gloo world (spawned; both ranks on the one card): the
+    edge-sharded HEAT4 and GCN steps on this rank's half of the two
+    slides' edge store, then the data-parallel GCN step on this rank's
+    slide. Writes each step's loss and gradients for the parent."""
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT))
+    from wsi_hgnn_tpu_torch import convert
+    from wsi_hgnn_tpu_torch.config import parse_gnn_model, parse_loss
+    from wsi_hgnn_tpu_torch.graph.typed_graph import TypedGraph
+    from wsi_hgnn_tpu_torch.parallel import (local_edges,
+                                             make_big_graph_train_step,
+                                             make_dp_train_step, make_mesh,
+                                             place_state, rank_generator)
+    from wsi_hgnn_tpu_torch.utils import set_cuda_numerics
+
+    # the inputs from a file: through the spawn pipe the parent would feed
+    # one rank at a time, each only after it imported torch
+    with open(Path(out_dir) / "inputs.pkl", "rb") as f:
+        inp = pickle.load(f)
+    t0 = time.perf_counter()
+    times = {"start": time.time() - inp["spawned"]}   # process and imports
+    torch.set_num_threads(2)    # the host work is small; the parent runs
+    dev = torch.device(inp["device"])
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+        set_cuda_numerics()
+        torch.ones(1, device=dev).sum().item()   # the CUDA context
+    times["cuda init"] = time.perf_counter() - t0
+    dist.init_process_group("gloo", init_method=init, rank=rank,
+                            world_size=world)
+    times["group"] = time.perf_counter() - t0 - times["cuda init"]
+    try:
+        mesh = make_mesh(device=dev)
+        loss_fcn = parse_loss({"loss": "CE"})
+        labels = torch.tensor(inp["labels"], device=dev)
+        weights = torch.ones(len(inp["labels"]), device=dev)
+        out = {}
+
+        def lap(what):
+            times[what] = (time.perf_counter() - t0 - sum(times.values())
+                           + times["start"])
+
+        def trained(name):
+            model, hetero = parse_gnn_model(inp["gnn"][name])
+            convert.load_flax_variables(model, inp["variables"][name])
+            model.to(dev)
+            return model, hetero, torch.optim.SGD(model.parameters(), lr=1e-3)
+
+        def grads(model):
+            return {n: p.grad.cpu().numpy() for n, p in
+                    model.named_parameters()}
+
+        for name in ("HEAT4", "GCN"):
+            model, hetero, opt = trained(name)   # a first optimizer
+            lap(f"{name} model")                  # imports torch._dynamo
+            step = make_big_graph_train_step(model, opt, loss_fcn, hetero,
+                                             mesh, augment=False)
+            loss, _ = step(local_edges(TypedGraph(**inp["graph"]), mesh),
+                           labels, weights,
+                           torch.Generator(device=dev).manual_seed(0))
+            out[name] = (float(loss), grads(model))
+            lap(f"{name} step")
+        model, hetero, opt = trained("GCN")
+        place_state(model, opt, mesh)
+        step = make_dp_train_step(model, opt, loss_fcn, hetero, mesh,
+                                  augment=False)
+        loss, _ = step(TypedGraph(**inp["slides"][rank]).to_torch(dev),
+                       labels[rank:rank + 1], weights[rank:rank + 1],
+                       rank_generator(0, mesh))
+        out["dp"] = (float(loss), grads(model))
+        lap("dp step")
+        out["times"] = {k: round(v, 2) for k, v in times.items()}
+    finally:
+        dist.destroy_process_group()
+    with open(Path(out_dir) / f"rank{rank}.pkl", "wb") as f:
+        pickle.dump(out, f)
+
+
+def _host(g):
+    """A device TypedGraph's arrays on the host, as TypedGraph kwargs."""
+    arrays = {f: getattr(g, f).cpu().numpy() for f in (
+        "feat", "node_type", "node_graph", "node_mask", "src", "dst",
+        "esign", "sim", "edge_mask")}
+    return dict(arrays, n_graphs=g.n_graphs, n_node_types=g.n_node_types,
+                n_edge_types=g.n_edge_types)
+
+
+def _slide_of(g, r: int, n: int):
+    """Slide r of a build_batch_device batch of equal slides (nodes and
+    src-major edges contiguous per slide), as a one-slide graph."""
+    arrays = _host(g)
+    e = arrays["src"].shape[0] // g.n_graphs
+    nodes, edges = slice(r * n, (r + 1) * n), slice(r * e, (r + 1) * e)
+    out = {k: arrays[k][nodes] for k in ("feat", "node_type", "node_mask")}
+    out.update({k: arrays[k][edges] for k in ("esign", "sim", "edge_mask")})
+    out.update(src=arrays["src"][edges] - r * n, dst=arrays["dst"][edges] - r * n,
+               node_graph=arrays["node_graph"][nodes] * 0)
+    return dict(out, n_graphs=1, n_node_types=g.n_node_types,
+                n_edge_types=g.n_edge_types)
+
+
+def free_port() -> int:
+    """A TCP port on 127.0.0.1 that nothing listens on now."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+class SingleCardStep:
+    """The single-card step of `model` on `g` (f32 and float64 gradients,
+    the float64 spread drawn once, when first needed) against which
+    sharded steps' gradients are judged: relative L2 1e-4 per tensor, or
+    the float64 judge (wsi_hgnn_tpu_torch/train/gradcheck.py)."""
+
+    def __init__(self, torch, dev, model, g, labels):
+        import copy
+
+        from wsi_hgnn_tpu_torch.config import parse_loss
+
+        self.torch, self.dev, self.g, self.labels = torch, dev, g, labels
+        self.loss_fcn = parse_loss({"loss": "CE"})
+        self.names = [n for n, _ in model.named_parameters()]
+        self.base64 = copy.deepcopy(model).double()
+        self.ref = copy.deepcopy(model)
+        self._run(self.ref, g)
+        self.m64 = copy.deepcopy(self.base64).to(dev)
+        self.run64(self.m64)
+        self.g64 = {n: p.grad.detach().double().cpu() for n, p in
+                    self.m64.named_parameters()}
+        self._spread = None
+
+    def _run(self, m, graph):
+        m.train()
+        m.zero_grad(set_to_none=False)
+        w = self.torch.ones(self.labels.shape[0], dtype=graph.feat.dtype,
+                            device=graph.feat.device)
+        self.loss_fcn(m(graph), self.labels.to(graph.feat.device),
+                      w).backward()
+
+    def run64(self, m):
+        self._run(m, self.g.replace(feat=self.g.feat.double(),
+                                    sim=self.g.sim.double()))
+
+    def spread(self):
+        from wsi_hgnn_tpu_torch.train import gradcheck
+
+        if self._spread is None:
+            self._spread = gradcheck.rounding_spread(
+                self.run64, self.base64, self.g64, device=self.dev)
+        return self._spread
+
+    def judge(self, got, what: str) -> str:
+        """`got` (name -> gradient) judged; fails the group on any tensor
+        the judge fails. Returns the judge's log fragment."""
+        import types
+
+        from wsi_hgnn_tpu_torch.train import gradcheck
+
+        named_got = [(n, types.SimpleNamespace(
+            grad=self.torch.as_tensor(got[n]), requires_grad=True))
+            for n in self.names]
+        text, failed = gradcheck.judge(
+            list(self.ref.named_parameters()), named_got,
+            list(self.m64.named_parameters()), self.spread)
+        check(not failed, f"{what}: gradients differ from the single-card "
+              f"step: {failed} ({text})")
+        return text
+
+
+def parallel_phase(torch, dev, card, kernels, root: Path,
+                   patches=PAR_PATCHES, nodes=PAR_NODES, gnn=None,
+                   hover_dim=1024):
+    """(a) The featurizer's data parallelism: the 'kimia' (with HoVer-Net
+    typing) and 'hover' encoders sharded over [card, card] on a chunk of
+    130 patches (padded to 256, 128 a device) against the single-device
+    encoder on the same card and weights, and the slide graph built from
+    the sharded features; (b) a gloo world of 2 ranks on the card: the
+    edge-sharded HEAT4 and GCN steps and the data-parallel GCN step
+    against the single-card step; (c) an NCCL world of 1: the edge-sharded
+    step against the plain one. The world's processes start first and run
+    beside the rest. Counters are zeroed before the rank steps' graphs
+    are built and before the sharded encoders, and read after each: the
+    group's main path. Returns
+    those launch counts. `gnn` (GNN widths) and `hover_dim` (HoVer-Net's
+    fc1 width) shrink a CPU rehearsal."""
+    import math
+    import pickle
+
+    import numpy as np
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from wsi_hgnn_tpu_torch import convert
+    from wsi_hgnn_tpu_torch.config import (load_config, parse_gnn_model,
+                                           parse_loss)
+    from wsi_hgnn_tpu_torch.graph.build import build_batch_device, build_graph
+    from wsi_hgnn_tpu_torch.graph.typed_graph import (TypedGraph,
+                                                      to_homogeneous)
+    from wsi_hgnn_tpu_torch.models.featurizers import (HoVerNet, KimiaNet,
+                                                       _pad_rows,
+                                                       load_cnn_variables,
+                                                       make_cnn_encoder)
+    from wsi_hgnn_tpu_torch.parallel import (local_edges,
+                                             make_big_graph_train_step,
+                                             make_mesh)
+
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+
+    # ---- (b) a gloo world of 2 ranks on the card, started first: it runs
+    # while the parent does (a), the references and (c) ---------------------
+    t0 = time.perf_counter()
+    heat = dict(GNN, feat_drop=0.0, **(gnn or {}))
+    # the BRCA GCN with its attention pooling: the gate's bias has a
+    # gradient of about 0, which only the float64 judge's randomly rounded
+    # steps can judge
+    gcn_cfg = dict(load_config(ROOT / GCN_CONFIG)["GNN"], dropout=0.0,
+                   feat_drop=0.0, **(gnn or {}))
+    rng = np.random.RandomState(91)
+    in_dim = heat["in_dim"]
+    kernels.reset_launch_counts()
+    feats = torch.from_numpy(rng.randn(2, nodes, in_dim).astype(np.float32))
+    types = torch.from_numpy(rng.randint(0, N_TYPES, (2, nodes)))
+    g = build_batch_device(feats.to(dev), types.to(dev),
+                           torch.ones((2, nodes), dtype=torch.bool,
+                                      device=dev), RADIUS, N_TYPES)
+    launches_b = kernels.launch_counts()
+    check(launches_b == {"knn_l2_fused": 2, "dense_layer_fused": 0,
+                         "transition_fused": 0},
+          f"the rank steps' graphs launched {launches_b}")
+    labels = np.array([0, 1])
+    models, variables = {}, {}
+    for name, spec, seed in (("HEAT4", heat, 5), ("GCN", gcn_cfg, 6)):
+        m, _ = parse_gnn_model(spec)
+        convert.init_flax_like_(m, seed)
+        variables[name] = convert.to_flax_variables(m)
+        models[name] = m.to(dev)
+    inp = {"device": str(dev), "gnn": {"HEAT4": heat, "GCN": gcn_cfg},
+           "variables": variables,
+           "graph": _host(g), "labels": labels,
+           "slides": [_slide_of(g, r, nodes) for r in range(PAR_WORLD)]}
+    world_dir = root / "world"
+    world_dir.mkdir()
+    inp["spawned"] = time.time()
+    with open(world_dir / "inputs.pkl", "wb") as f:
+        pickle.dump(inp, f, protocol=pickle.HIGHEST_PROTOCOL)
+    world = mp.spawn(_par_rank, args=(PAR_WORLD, f"tcp://127.0.0.1:"
+                                      f"{free_port()}", str(world_dir)),
+                     nprocs=PAR_WORLD, join=False)
+    try:
+        # (a), the single-card references and (c) while the ranks work
+        t0 = time.perf_counter()
+        cfg = {"feature_dim": hover_dim, "n_node_type": N_TYPES}
+        width = {"kimia": 1024, "hover": hover_dim}
+        hcfg = {"mode": "fast", "batch_size": CHUNK}
+        kimia = load_cnn_variables("kimia", KimiaNet(), None, 1)
+        typing = load_cnn_variables("hover", HoVerNet.typing(N_TYPES, "fast"),
+                                    None, 0, N_TYPES)
+        with torch.device("meta"):
+            full = HoVerNet(N_TYPES, "fast", feat_dim=cfg["feature_dim"])
+        hover = load_cnn_variables("hover", full, None, 0, N_TYPES)
+        px = patch_pool(patches, seed=90)
+        devices = [dev] * PAR_DEVICES
+        encoders = {}
+        for name, hv in (("kimia", typing), ("hover", hover)):
+            for sharded in (True, False):
+                encoders[name, sharded] = make_cnn_encoder(
+                    name, cfg, hcfg, {}, with_typing=name == "kimia",
+                    pad_batch_to=CHUNK, device=dev,
+                    devices=devices if sharded else None,
+                    kimia_variables=kimia, hover_variables=hv)
+        t_setup = time.perf_counter() - t0
+        # ---- (a) the main path: counters from 0 -----------------------------
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t_a0 = time.perf_counter()
+        got = {name: encoders[name, True](px) for name in ("kimia", "hover")}
+        het, _ = build_graph(got["kimia"][0], got["kimia"][1], radius=RADIUS,
+                             n_node_types=N_TYPES, knn_impl="pallas", device=dev)
+        torch.cuda.synchronize()
+        t_sharded = time.perf_counter() - t_a0
+        launches_a = kernels.launch_counts()
+        # one chunk, split into one part a device: each part is one batch of
+        # the DenseNet kernels; one KNN for the slide graph
+        want_a = {"knn_l2_fused": 1,
+                  **{k: v * PAR_DEVICES for k, v in PER_CHUNK.items()}}
+        check(launches_a == want_a, f"sharded encoders and graph launched "
+              f"{launches_a}, want {want_a}")
+        check(int(np.asarray(het.node_mask).sum()) == patches,
+              "graph of the sharded features")
+        # the single-device encoder on the same per-device batches (the chunk
+        # padded as the sharded encoder pads it, run half by half: the same
+        # cuDNN algorithms, so bf16 rounds alike), and on the whole chunk
+        # (another batch: bf16 products round differently, held to the bf16
+        # bound of the served features)
+        padded = _pad_rows(_pad_rows(px, CHUNK), PAR_DEVICES)
+        per = len(padded) // PAR_DEVICES
+        errs = []
+        for name in ("kimia", "hover"):
+            single = encoders[name, False]
+            halves = [single(padded[i * per:(i + 1) * per])
+                      for i in range(PAR_DEVICES)]
+            want_f = np.concatenate([h[0] for h in halves])[:patches]
+            want_t = np.concatenate([h[1] for h in halves])[:patches]
+            f, t = got[name]
+            check(f.shape == (patches, width[name]) and np.all(
+                np.isfinite(f)), f"{name}: sharded features {f.shape}")
+            rel = float(np.linalg.norm(f - want_f) / np.linalg.norm(want_f))
+            check(rel <= PAR_FEAT_RTOL, f"{name}: sharded features {rel:.3g} "
+                  f"relative L2 from the single-device encoder's on the same "
+                  f"batches (> {PAR_FEAT_RTOL})")
+            check(np.array_equal(t, want_t), f"{name}: sharded node types "
+                  "differ from the single-device encoder's")
+            whole_f, whole_t = single(px)
+            rel_whole = float(np.linalg.norm(f - whole_f)
+                              / np.linalg.norm(whole_f))
+            check(rel_whole <= BF16_FEAT_RTOL, f"{name}: sharded features "
+                  f"{rel_whole:.3g} relative L2 from the single-device encoder's "
+                  f"on the whole chunk (> {BF16_FEAT_RTOL})")
+            errs.append(f"{name} rel L2 {rel:.3g} on the same batches, "
+                        f"{rel_whole:.3g} against the whole chunk (types "
+                        f"{int((t == whole_t).sum())}/{patches} equal)")
+        log(f"parallel (a): 'kimia'+typing and 'hover' encoders sharded over "
+            f"{PAR_DEVICES} x {dev} on {patches} patches (padded to "
+            f"{len(padded)}, {per} a device), then the slide graph, in "
+            f"{t_sharded * 1e3:.1f} ms; against the single-device encoders: "
+            f"{'; '.join(errs)} (<= {PAR_FEAT_RTOL} and {BF16_FEAT_RTOL}), "
+            f"node types equal on the same batches; launches {launches_a} "
+            f"[{card}]")
+        t_a = time.perf_counter() - t_a0
+        # the single-card references and (c), while the ranks work
+        y = torch.tensor(labels, device=dev)
+        single = {"HEAT4": SingleCardStep(torch, dev, models["HEAT4"], g, y),
+                  "GCN": SingleCardStep(torch, dev, models["GCN"],
+                                        to_homogeneous(g), y)}
+
+        # ---- (c) an NCCL world of 1 ---------------------------------------
+        cuda = dev.type == "cuda"
+        dist.init_process_group("nccl" if cuda else "gloo",
+                                init_method=f"tcp://127.0.0.1:{free_port()}",
+                                rank=0, world_size=1,
+                                device_id=dev if cuda else None)
+        try:
+            model, _ = parse_gnn_model(heat)
+            convert.load_flax_variables(model, variables["HEAT4"])
+            model.to(dev)
+            step = make_big_graph_train_step(
+                model, torch.optim.SGD(model.parameters(), lr=1e-3),
+                parse_loss({"loss": "CE"}), True, make_mesh(device=dev),
+                augment=False)
+            host = TypedGraph(**inp["graph"])
+            loss, _ = step(local_edges(host, make_mesh(device=dev)), y,
+                           torch.ones(2, device=dev),
+                           torch.Generator(device=dev).manual_seed(0))
+            grads = {n: p.grad.cpu().numpy() for n, p in
+                     model.named_parameters()}
+        finally:
+            dist.destroy_process_group()
+        text = single["HEAT4"].judge(grads, "NCCL world of 1")
+        log(f"parallel (c): NCCL world of 1, the edge-sharded HEAT4 step "
+            f"(loss {float(loss):.6f}) against the plain step: {text} "
+            f"[{card}]")
+        t_c = time.perf_counter() - t_a0 - t_a
+        # ---- (b) continued: the ranks' results ----------------------------
+        t_wait = time.perf_counter()
+        while not world.join():
+            pass
+        t_wait = time.perf_counter() - t_wait
+    finally:
+        for proc in world.processes:   # (a) failed: stop the ranks
+            if proc.is_alive():
+                proc.terminate()
+            proc.join()
+
+    ranks = []
+    for r in range(PAR_WORLD):
+        with open(world_dir / f"rank{r}.pkl", "rb") as f:
+            ranks.append(pickle.load(f))
+    t_judge = time.perf_counter()
+    texts = []
+    for name, key in (("HEAT4", "HEAT4"), ("GCN", "GCN"), ("GCN", "dp")):
+        losses = [r[key][0] for r in ranks]
+        # replicated node work sums with atomics on the card: the ranks'
+        # losses agree to f32 rounding, not bit for bit
+        check(all(math.isfinite(x) for x in losses)
+              and max(losses) - min(losses) <= 1e-5 * abs(losses[0]),
+              f"{key}: rank losses {losses} (relative 1e-5)")
+        for r in range(PAR_WORLD):
+            texts.append(f"{key} rank {r}: " + single[name].judge(
+                ranks[r][key][1], f"{key} rank {r}"))
+    t_judge = time.perf_counter() - t_judge
+    log(f"parallel (b): gloo world of {PAR_WORLD} on {dev}: edge-sharded HEAT4 "
+        f"(in {heat['in_dim']}, hidden {heat['hidden_dim']}) and GCN "
+        f"(hidden {gcn_cfg['hidden_dim']}, {gcn_cfg['num_layers']} layers) "
+        f"steps on 2 slides x {nodes} nodes ({g.num_edges} edge slots, "
+        f"{g.num_edges // PAR_WORLD} a rank), the DP GCN step one slide a "
+        f"rank, each against the single-card step: " + "; ".join(texts)
+        + f" [{card}]")
+
+    log(f"timing parallel: set-up {t_setup:.1f} s, sharded encoders + graph "
+        f"{t_sharded * 1e3:.1f} ms, (a) with its references {t_a:.1f} s, "
+        f"the single-card references and (c) {t_c:.1f} s, the gloo world's "
+        f"wait after them {t_wait:.1f} s (rank 0, s: {ranks[0]['times']}), "
+        f"the judge {t_judge:.1f} s [{card}]")
+    total = {k: launches_a[k] + launches_b[k] for k in launches_a}
+    return [total]
 
 
 def main() -> int:
@@ -2932,7 +3373,7 @@ def main() -> int:
             f" ms by {r['bound_by']}; plain {r['plain_ms']:.4g} ms) "
             f"[{card}]")
 
-    # three independent groups of phases: a failed check ends its group,
+    # four independent groups of phases: a failed check ends its group,
     # is reported, and the run goes on to the next group; any failure
     # fails the run (exit 1, no result lines)
     failures, counts = [], []
@@ -2947,6 +3388,9 @@ def main() -> int:
                 mil_phase(torch, dev, card, kernels, root, splits),
                 mil_tree_phase(torch, dev, card, kernels, root, dn, gen_dev))
 
+    def parallel(root):
+        return parallel_phase(torch, dev, card, kernels, root)
+
     def building(root):
         constructed = construct_phase(torch, dev, card, kernels, root)
         tiled, layout = tile_build_phase(torch, dev, card, kernels, root)
@@ -2957,7 +3401,8 @@ def main() -> int:
         for name, group in (
                 ("serving", serving),
                 ("construction", building),
-                ("training", training)):
+                ("training", training),
+                ("parallel", parallel)):
             root = Path(tmp) / name
             root.mkdir()
             t0 = time.perf_counter()

@@ -129,6 +129,12 @@ def test_entry_points_never_fall_back_to_cpu(monkeypatch, tmp_path):
                                   "HEAT4_kimia_classification.yml")])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         main.main(["-mode", "graph_explain"])
+    from wsi_hgnn_tpu_torch.parallel import dryrun
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dryrun.main(["2"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dryrun.dryrun_multichip(2)
     from wsi_hgnn_tpu_torch import train_mil
 
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -160,8 +166,8 @@ def test_chip_smoke_fails_without_a_card(tmp_path):
 def test_port_imports_no_jax():
     """Every module of the port (found by walking the package, so new
     ones are covered) and chip_smoke.py import without pulling in JAX,
-    Flax, optax, the JAX package, PyYAML, msgpack, or cv2 and matplotlib
-    (absent on the card machine)."""
+    Flax, optax, the JAX package, PyYAML, msgpack, dgl, or cv2 and
+    matplotlib (absent on the card machine)."""
     code = ("import importlib, pkgutil, sys, wsi_hgnn_tpu_torch as p;"
             " names = [m.name for m in pkgutil.walk_packages(p.__path__,"
             " 'wsi_hgnn_tpu_torch.')];"
@@ -175,10 +181,17 @@ def test_port_imports_no_jax():
             " 'wsi_hgnn_tpu_torch.explain.explain_graphs',"
             " 'wsi_hgnn_tpu_torch.models.mil',"
             " 'wsi_hgnn_tpu_torch.models.mil.graph_transformer',"
-            " 'wsi_hgnn_tpu_torch.train_mil'} <= set(names);"
+            " 'wsi_hgnn_tpu_torch.train_mil', 'wsi_hgnn_tpu_torch.collectives',"
+            " 'wsi_hgnn_tpu_torch.parallel.mesh',"
+            " 'wsi_hgnn_tpu_torch.parallel.dp',"
+            " 'wsi_hgnn_tpu_torch.parallel.big_graph',"
+            " 'wsi_hgnn_tpu_torch.parallel.dryrun',"
+            " 'wsi_hgnn_tpu_torch.tools.convert_reference_checkpoint',"
+            " 'wsi_hgnn_tpu_torch.tools.convert_reference_graphs'}"
+            " <= set(names);"
             " bad = [m for m in sys.modules if m.split('.')[0] in"
             " ('jax', 'flax', 'optax', 'wsi_hgnn_tpu', 'yaml', 'msgpack',"
-            " 'cv2', 'matplotlib')];"
+            " 'dgl', 'cv2', 'matplotlib')];"
             " assert not bad, bad")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)

@@ -302,6 +302,12 @@ def test_no_port_file_imports_jax():
     files = sorted((ROOT / "wsi_hgnn_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 30
+    pkg = ROOT / "wsi_hgnn_tpu_torch"
+    assert {pkg / "collectives.py", pkg / "parallel" / "mesh.py",
+            pkg / "parallel" / "dp.py", pkg / "parallel" / "big_graph.py",
+            pkg / "parallel" / "dryrun.py",
+            pkg / "tools" / "convert_reference_checkpoint.py",
+            pkg / "tools" / "convert_reference_graphs.py"} <= set(files)
     hits = [f"{f.relative_to(ROOT)}:{i}: {line.strip()}"
             for f in files
             for i, line in enumerate(f.read_text().splitlines(), 1)

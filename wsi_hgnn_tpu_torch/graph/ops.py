@@ -10,6 +10,13 @@ sorted `index_put_`, PERF.md §5), sums are `index_add`, maxima are
 `scatter_reduce(..., "amax", include_self=False)` into a -inf base. Padding
 is excluded by masks, and empty segments give what the JAX package's
 `jax.ops.segment_*` give after its masks: 0.
+
+On an edge-sharded graph (`TypedGraph.edge_group` set) every edge-keyed
+reduction combines its partial result over the group, as the JAX
+package's psum/pmax over its mesh axis: sums through the differentiable
+`collectives.all_reduce_sum`, the softmax's detached maximum through a
+MAX all-reduce, and copy_u_max's maximum with its gradient routed by a
+sum over the ranks that hold it (ties split evenly).
 """
 from __future__ import annotations
 
@@ -17,6 +24,7 @@ from typing import List, NamedTuple, Optional
 
 import torch
 
+from ..collectives import all_reduce_sum, all_reduced
 from .typed_graph import TypedGraph
 
 _NEG_INF = -1e30
@@ -51,20 +59,27 @@ def _bcast(mask: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
 # --------------------------------------------------------------------- #
 def segment_softmax(scores: torch.Tensor, segment_ids: torch.Tensor,
                     num_segments: int,
-                    mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    mask: Optional[torch.Tensor] = None,
+                    group=None) -> torch.Tensor:
     """Softmax of `scores` ([E] or [E, H]) within each segment. Masked
     entries score -1e30 and get probability 0. The segment max is only a
     stabiliser and carries no gradient (JAX's stop_gradient); a
-    non-finite max (an empty segment) becomes 0 and a zero denominator 1."""
+    non-finite max (an empty segment) becomes 0 and a zero denominator 1.
+    With `group` (edge sharding) the max and the denominator are
+    all-reduced over it, so each edge gets the unsharded softmax."""
     if mask is not None:
         scores = torch.where(_bcast(mask, scores), scores, _NEG_INF)
     with torch.no_grad():
         seg_max = segment_max(scores, segment_ids, num_segments)
+        if group is not None:
+            seg_max = all_reduced(seg_max, "max", group)
         seg_max = torch.where(torch.isfinite(seg_max), seg_max, 0.0)
     exp = torch.exp(scores - gather(seg_max, segment_ids))
     if mask is not None:
         exp = torch.where(_bcast(mask, exp), exp, 0.0)
     denom = segment_sum(exp, segment_ids, num_segments)
+    if group is not None:
+        denom = all_reduce_sum(denom, group)
     denom = torch.where(denom > 0, denom, 1.0)
     return exp / gather(denom, segment_ids)
 
@@ -85,7 +100,7 @@ def edge_softmax_by_dst_rel(g: TypedGraph, scores: torch.Tensor
     else:
         seg = torch.where(g.edge_mask, seg, g.num_nodes * n_combo - 1)
     return segment_softmax(scores, seg, g.num_nodes * n_combo,
-                           mask=g.edge_mask)
+                           mask=g.edge_mask, group=g.edge_group)
 
 
 # --------------------------------------------------------------------- #
@@ -102,7 +117,8 @@ def copy_e_sum(g: TypedGraph, edge_vals: torch.Tensor) -> torch.Tensor:
     """Sum of per-edge values into their dst nodes: [E, ...] -> [N, ...]."""
     ev = _apply_edge_weight(g, edge_vals)
     ev = torch.where(_bcast(g.edge_mask, ev), ev, 0.0)
-    return segment_sum(ev, g.dst, g.num_nodes)
+    out = segment_sum(ev, g.dst, g.num_nodes)
+    return out if g.edge_group is None else all_reduce_sum(out, g.edge_group)
 
 
 def u_mul_e_sum(g: TypedGraph, node_vals: torch.Tensor,
@@ -127,6 +143,15 @@ def copy_u_max(g: TypedGraph, node_vals: torch.Tensor) -> torch.Tensor:
     msgs = _apply_edge_weight(g, gather(node_vals, g.src))
     msgs = torch.where(_bcast(g.edge_mask, msgs), msgs, _NEG_INF)
     out = segment_max(msgs, g.dst, g.num_nodes)
+    if g.edge_group is not None:
+        # the global max as the value (detached MAX), its gradient routed
+        # through a sum over the ranks that hold it, ties split evenly:
+        # the JAX package's psum-routed pmax
+        gmax = all_reduced(out, "max", g.edge_group)
+        is_max = (out >= gmax) & (out > _NEG_INF / 2)
+        num = all_reduce_sum(torch.where(is_max, out, 0.0), g.edge_group)
+        cnt = all_reduced(is_max.to(out.dtype), "sum", g.edge_group)
+        out = torch.where(cnt > 0, num / cnt.clamp_min(1.0), _NEG_INF)
     return torch.where(out <= _NEG_INF / 2, 0.0, out)
 
 

@@ -18,10 +18,12 @@ that device form.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Any, Optional
 
 import numpy as np
 import torch
+
+from ..collectives import all_reduced
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,6 +53,14 @@ class TypedGraph:
     # counts it in training), so a flat batch of B graphs computes what B
     # single forwards compute: the explainers' leave-one-out batches
     per_graph_occupancy: bool = False
+    # edge sharding (parallel/big_graph.py): a torch.distributed process
+    # group when this graph's edge arrays hold only this rank's slice of
+    # the edge store (node arrays whole on every rank). Every edge-keyed
+    # reduction (graph/ops.py segment softmax and aggregations,
+    # rel_edge_counts, degrees) then all-reduces its partial result over
+    # the group, so the unmodified models compute the single-device
+    # answer. None: the whole edge store is here.
+    edge_group: Optional[Any] = None
 
     def replace(self, **changes) -> "TypedGraph":
         return dataclasses.replace(self, **changes)
@@ -97,7 +107,15 @@ class TypedGraph:
         'mean') divides by the relations present in the batch."""
         out = torch.zeros(self.n_relations, dtype=torch.long,
                           device=self.src.device)
-        return out.index_add_(0, self.edge_rel(), self.edge_mask.long())
+        out = out.index_add_(0, self.edge_rel(), self.edge_mask.long())
+        return self.reduce_edges(out)
+
+    def reduce_edges(self, counts: torch.Tensor) -> torch.Tensor:
+        """A count over this graph's edges, summed over `edge_group`
+        when the edges are sharded (no autograd: counts of masks)."""
+        if self.edge_group is None:
+            return counts
+        return all_reduced(counts, "sum", self.edge_group)
 
     def degrees(self, implicit_self_loops: bool = False):
         """(out_degree[N], in_degree[N]) over real edges, in the features'
@@ -106,6 +124,9 @@ class TypedGraph:
         ones = self.edge_mask.to(self.feat.dtype)
         out_deg = ones.new_zeros(self.num_nodes).index_add_(0, self.src, ones)
         in_deg = ones.new_zeros(self.num_nodes).index_add_(0, self.dst, ones)
+        if self.edge_group is not None:
+            both = self.reduce_edges(torch.stack([out_deg, in_deg]))
+            out_deg, in_deg = both[0], both[1]
         if implicit_self_loops:
             real = self.node_mask.to(ones.dtype)
             out_deg = out_deg + real

@@ -161,10 +161,13 @@ def dense_layer_fused(x_full, a1, b1, w1f, b2, w2cat, *,
              and w2cat.shape == (GROUP, 9 * GROWTH), "operand shapes")
     _require(suffix == "f32" or c_end % 8 == 0,
              "the bf16 kernel copies 16-byte rows: C_end % 8 == 0")
-    status = _kernel("dense_layer", suffix)(
-        x_full.data_ptr(), a1.data_ptr(), b1.data_ptr(), w1f.data_ptr(),
-        b2.data_ptr(), w2cat.data_ptr(), bsz, h, w, c_end, k_in, slot,
-        torch.cuda.current_stream(x_full.device).cuda_stream)
+    # the C entry sets its attributes and launches on the runtime's
+    # current device: make that the operands' card
+    with torch.cuda.device(x_full.device):
+        status = _kernel("dense_layer", suffix)(
+            x_full.data_ptr(), a1.data_ptr(), b1.data_ptr(), w1f.data_ptr(),
+            b2.data_ptr(), w2cat.data_ptr(), bsz, h, w, c_end, k_in, slot,
+            torch.cuda.current_stream(x_full.device).cuda_stream)
     _build.check(status, "dense_layer")
     dense_layer_fused.launches += 1
     return x_full
@@ -190,10 +193,11 @@ def transition_fused(x, a, b, w, out: Optional[torch.Tensor] = None
     _require(suffix == "f32" or (c % 32 == 0 and out.shape[3] % 2 == 0),
              "the bf16 kernel takes 32-channel chunks and stores channel "
              "pairs: C % 32 == 0 and an even out row")
-    status = _kernel("transition", suffix)(
-        x.data_ptr(), a.data_ptr(), b.data_ptr(), w.data_ptr(),
-        out.data_ptr(), bsz, h, w_sp, c, out.shape[3],
-        torch.cuda.current_stream(x.device).cuda_stream)
+    with torch.cuda.device(x.device):
+        status = _kernel("transition", suffix)(
+            x.data_ptr(), a.data_ptr(), b.data_ptr(), w.data_ptr(),
+            out.data_ptr(), bsz, h, w_sp, c, out.shape[3],
+            torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(status, "transition")
     transition_fused.launches += 1
     return out

@@ -21,7 +21,7 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
-from ...utils import resolve_device, set_cuda_numerics, to_torch
+from ...utils import resolve_device, set_cuda_numerics
 from . import convert
 from .densenet import DenseNet121, KimiaNet, fuse_kimianet, kimianet_fused_apply
 from .efficientnet import EfficientNet, efficientnet_apply
@@ -52,12 +52,20 @@ def _pad_rows(arr: np.ndarray, multiple: int) -> np.ndarray:
     return arr
 
 
-def _make_encode(fn: Callable, device: torch.device,
-                 pad_batch_to: Optional[int]):
+def _make_encode(build: Callable, devices, pad_batch_to: Optional[int]):
     """The numpy boundary of every encoder: pad the chunk to the fixed
-    batch (one shape for full and trailing chunks), run `fn` on the
-    device, slice the pad off, return (features f32, node_types | None).
-    uint8 chunks cross to the device unconverted."""
+    batch (one shape for full and trailing chunks), then to a multiple of
+    the device count (repeating the last row, as the JAX package's
+    `_pad_rows`), run it split over the devices (`build(device)` is one
+    device's function of normalised pixels; parallel.mesh.
+    make_sharded_batch_apply), slice the pad off, return (features f32,
+    node_types | None). uint8 chunks cross to the devices unconverted."""
+    from ...parallel.mesh import make_sharded_batch_apply
+
+    devices = tuple(devices)
+    run = make_sharded_batch_apply(
+        lambda d: (lambda p, f=build(d): f(_norm_pixels(p))), devices)
+
     def encode(patches: np.ndarray):
         arr = np.asarray(patches)
         if arr.dtype != np.uint8:
@@ -65,14 +73,16 @@ def _make_encode(fn: Callable, device: torch.device,
         b = arr.shape[0]
         if pad_batch_to:
             arr = _pad_rows(arr, pad_batch_to)
+        arr = _pad_rows(arr, len(devices))
         with torch.inference_mode():
-            out = fn(_norm_pixels(to_torch(arr, device)))
+            out = run(torch.from_numpy(np.ascontiguousarray(arr)))
         feats, types = out if isinstance(out, tuple) else (out, None)
-        feats = feats[:b].float().cpu().numpy()
-        return feats, (None if types is None else types[:b].cpu().numpy())
+        feats = feats[:b].float().numpy()
+        return feats, (None if types is None else types[:b].numpy())
 
     # serve.featurize keeps patch batches uint8 end to end when it sees this
     encode.accepts_uint8 = True
+    encode.devices = devices
     return encode
 
 
@@ -208,7 +218,7 @@ def make_cnn_encoder(name: str, config: Dict, hovernet_config: Dict,
                      kimia_variables: Optional[Dict] = None,
                      hover_variables: Optional[Dict] = None,
                      efficientnet_variables: Optional[Dict] = None,
-                     seed: int = 0):
+                     seed: int = 0, devices=None):
     """`(patches [B, 256, 256, 3] uint8 or f32) -> (features [B, D] f32,
     node_types [B] int32 | None)`.
 
@@ -219,65 +229,81 @@ def make_cnn_encoder(name: str, config: Dict, hovernet_config: Dict,
     (feature_dim wide) and types. bf16 storage on the card, f32 on the
     CPU. Any other name raises NotImplementedError (the JAX package builds
     no 'efficientnet-b7' either). Weights as the module docstring says.
-    The encoder carries its device functions as `encode.stages`
-    ('kimianet' / 'efficientnet' / 'hovernet'), for per-stage timing."""
-    dev = resolve_device(device)
-    if dev.type == "cuda":
+
+    `devices` (a sequence, or a parallel.Mesh) shards every chunk over
+    several devices, one replica of each CNN per distinct device (the
+    JAX package's `mesh`; the reference's DataParallel); by default the
+    one `device`. The encoder carries the first device's functions as
+    `encode.stages` ('kimianet' / 'efficientnet' / 'hovernet'), for
+    per-stage timing."""
+    if devices is None:
+        devs = (resolve_device(device),)
+    else:
+        from ...parallel.mesh import _device_list
+
+        devs = tuple(resolve_device(d) for d in _device_list(devices))
+    if any(d.type == "cuda" for d in devs):
         set_cuda_numerics()
     nr_types = int(config.get("n_node_type", 6))
     feat_dim = int(config.get("feature_dim", 1024))
-    dtype = torch.bfloat16 if dev.type == "cuda" else torch.float32
-    if name == "hover":
-        model, _ = _card_dtype(make_hovernet(
-            hovernet_config, nr_types, dev, hover_variables, seed,
-            feat_dim=feat_dim), dev)
-
-        def full(imgs):
-            return hovernet_full_apply(model, imgs.to(dtype), nr_types)
-
-        encode = _make_encode(full, dev, pad_batch_to)
-        encode.stages = {"hovernet": full}
-        return encode
-    if name == "kimia":
-        if kimia_variables is None:
-            kimia_variables = load_cnn_variables(
-                "kimia", KimiaNet(),
-                kimianet_config.get("kimianet_model_path"), seed + 1)
-        fp = fuse_kimianet(kimia_variables, dtype=dtype, device=dev)
-
-        def feat_part(imgs):
-            return kimianet_fused_apply(fp, imgs.to(dtype))[0]
-
-        stage = "kimianet"
-    elif name == "efficientnet-b4":
-        from ... import convert as bridge
-
-        with torch.device(dev):
-            model = EfficientNet.from_name(name, num_classes=feat_dim)
-        if efficientnet_variables is None:
-            efficientnet_variables = load_cnn_variables(
-                "efficientnet", model, config.get("efficientnet_model_path"),
-                seed + 2)
-        model, _ = _card_dtype(bridge.load_flax_variables(
-            model, efficientnet_variables).eval(), dev)
-
-        def feat_part(imgs):
-            return efficientnet_apply(model, imgs.to(dtype))
-
-        stage = "efficientnet"
-    else:
+    if name not in ("hover", "kimia", "efficientnet-b4"):
         raise NotImplementedError(f"encoder {name!r}")
+    if name == "kimia" and kimia_variables is None:
+        kimia_variables = load_cnn_variables(
+            "kimia", KimiaNet(), kimianet_config.get("kimianet_model_path"),
+            seed + 1)
+    stages = {}
 
-    fn = feat_part
-    stages = {stage: feat_part}
-    if with_typing:
+    def build(dev):
+        dtype = torch.bfloat16 if dev.type == "cuda" else torch.float32
+        if name == "hover":
+            model, _ = _card_dtype(make_hovernet(
+                hovernet_config, nr_types, dev, hover_variables, seed,
+                feat_dim=feat_dim), dev)
+
+            def full(imgs):
+                return hovernet_full_apply(model, imgs.to(dtype), nr_types)
+
+            stages.setdefault("hovernet", full)
+            return full
+        if name == "kimia":
+            fp = fuse_kimianet(kimia_variables, dtype=dtype, device=dev)
+
+            def feat_part(imgs):
+                return kimianet_fused_apply(fp, imgs.to(dtype))[0]
+
+            stage = "kimianet"
+        else:
+            model = _efficientnet(name, config, feat_dim, dev,
+                                  efficientnet_variables, seed)
+
+            def feat_part(imgs):
+                return efficientnet_apply(model, imgs.to(dtype))
+
+            stage = "efficientnet"
+        stages.setdefault(stage, feat_part)
+        if not with_typing:
+            return feat_part
         typing_dev = make_hover_typing_device(
             dict(hovernet_config), nr_types, dev, hover_variables, seed)
-        stages["hovernet"] = typing_dev
+        stages.setdefault("hovernet", typing_dev)
+        return lambda imgs: (feat_part(imgs), typing_dev(imgs))
 
-        def fn(imgs):
-            return feat_part(imgs), typing_dev(imgs)
-
-    encode = _make_encode(fn, dev, pad_batch_to)
+    encode = _make_encode(build, devs, pad_batch_to)
     encode.stages = stages  # normalised device pixels in, device tensors out
     return encode
+
+
+def _efficientnet(name: str, config: Dict, feat_dim: int, dev: torch.device,
+                  variables: Optional[Dict], seed: int):
+    """EfficientNet-B4 in eval mode on `dev` (bf16 on the card)."""
+    from ... import convert as bridge
+
+    with torch.device(dev):
+        model = EfficientNet.from_name(name, num_classes=feat_dim)
+    if variables is None:
+        variables = load_cnn_variables(
+            "efficientnet", model, config.get("efficientnet_model_path"),
+            seed + 2)
+    return _card_dtype(bridge.load_flax_variables(model, variables).eval(),
+                       dev)[0]

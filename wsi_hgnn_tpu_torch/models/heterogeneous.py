@@ -11,7 +11,9 @@ DGL semantics kept exactly:
 Occupancy is over the graph the model is given: the whole batch in
 training, one slide at a time in evaluation and serving. A graph with
 `per_graph_occupancy` set has each graph of its flat batch count its own,
-so the batch computes what one forward per graph computes.
+so the batch computes what one forward per graph computes. On an edge
+shard (`edge_group`) the relation counts of either kind are summed over
+the group.
 
 `forward(g, drops=None)` returns logits [n_graphs, out_dim]; training-mode
 dropout takes its masks from `drops` (layers.DropSource). The HEAT models
@@ -50,9 +52,9 @@ def _presence(g: TypedGraph) -> Presence:
     t, r = g.n_node_types, g.n_relations
     if g.per_graph_occupancy:
         seg = ops.gather(g.node_graph, g.src) * r + g.edge_rel()
-        counts = torch.zeros(g.n_graphs * r, dtype=torch.long,
-                             device=seg.device).index_add_(
-            0, seg, g.edge_mask.long())
+        counts = g.reduce_edges(torch.zeros(
+            g.n_graphs * r, dtype=torch.long, device=seg.device).index_add_(
+            0, seg, g.edge_mask.long()))
         present = counts.reshape(g.n_graphs, r) > 0
         types = g.node_type_counts().reshape(g.n_graphs, t) > 0
         row = g.node_graph * t + g.node_type

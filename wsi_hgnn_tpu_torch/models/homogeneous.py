@@ -116,7 +116,8 @@ class GATConvLayer(nn.Module):
         er = (z * self.attn_r).sum(-1)
         e = F.leaky_relu(ops.gather(el, g.src) + ops.gather(er, g.dst),
                          self.negative_slope)
-        alpha = ops.segment_softmax(e, g.dst, g.num_nodes, mask=g.edge_mask)
+        alpha = ops.segment_softmax(e, g.dst, g.num_nodes, mask=g.edge_mask,
+                                    group=g.edge_group)
         alpha = dropout(self, drops, alpha, self.attn_drop)
         out = ops.u_mul_e_sum(g, z, alpha[:, :, None])      # [N, H, F]
         if self.residual:

@@ -52,10 +52,11 @@ def random_encoder(dim: int = 1024, seed: int = 0, n_types: int = 6
 
 
 def encoder_mesh(config: Dict, device: torch.device):
-    """The devices the CNN encoders would scale over (`dp_devices`: "all"
-    by default, an int, or 1/0/null for one): None when that is one
-    device. Sharding the patch stream over several cards is not ported
-    (ROADMAP.md item 7), so a run that would use more than one raises."""
+    """The cards the CNN encoders shard each patch chunk over
+    (`dp_devices`: "all" by default, an int count, or 1/0/null for one),
+    as a tuple of devices; None when that is one device (or the CPU).
+    The reference wraps both constructor CNNs in DataParallel; the JAX
+    package shards them over its mesh."""
     dp = config.get("dp_devices", "all")
     if dp in (None, 0, 1, "0", "1") or device.type != "cuda":
         return None
@@ -64,37 +65,31 @@ def encoder_mesh(config: Dict, device: torch.device):
         n = min(int(dp), n)
     if n <= 1:
         return None
-    raise NotImplementedError(
-        f"dp_devices={dp!r} would shard the encoders over {n} cards, which "
-        "is not ported yet (ROADMAP.md item 7); set dp_devices: 1")
+    return tuple(torch.device("cuda", i) for i in range(n))
 
 
 CNN_ENCODERS = ("kimia", "efficientnet-b4", "hover")
 
 
-def check_encoder(config: Dict, device: torch.device) -> None:
-    """Raise unless the port can build the config's encoder on `device`:
-    an encoder name outside the registry ('efficientnet-b7', which the
-    JAX package does not build either) or CNN encoders over several cards
-    (encoder_mesh). construct_all checks this before its loop, whose
-    per-slide skip would otherwise turn the error into a run that writes
-    nothing."""
+def check_encoder(config: Dict) -> None:
+    """Raise for an encoder name outside the registry ('efficientnet-b7',
+    which the JAX package does not build either). construct_all checks
+    this before its loop, whose per-slide skip would otherwise turn the
+    error into a run that writes nothing."""
     name = config["encoder_name"]
     if name not in ("random", "precomputed") + CNN_ENCODERS:
         raise NotImplementedError(f"encoder {name!r}")
-    if name in CNN_ENCODERS:
-        encoder_mesh(config, device)
 
 
 def make_encoder(name: str, config: Dict, hovernet_config: Dict,
                  kimianet_config: Dict, with_typing: bool = False,
                  pad_batch_to: Optional[int] = None,
-                 device=None) -> EncoderFn:
+                 device=None, devices=None) -> EncoderFn:
     """The encoder registry of the reference constructor's dispatch on
     `encoder_name`: 'random', or a CNN encoder ('kimia',
     'efficientnet-b4', 'hover'; with_typing adds HoVer-Net typing over
     the same patch chunk to the first two). pad_batch_to pads every chunk
-    to one batch size."""
+    to one batch size; `devices` shards each chunk over several cards."""
     if name == "random":
         return random_encoder(config.get("feature_dim", 1024),
                               n_types=config.get("n_node_type", 6))
@@ -103,7 +98,8 @@ def make_encoder(name: str, config: Dict, hovernet_config: Dict,
 
         return make_cnn_encoder(name, config, hovernet_config,
                                 kimianet_config, with_typing=with_typing,
-                                pad_batch_to=pad_batch_to, device=device)
+                                pad_batch_to=pad_batch_to, device=device,
+                                devices=devices)
     raise NotImplementedError(f"encoder {name!r}")
 
 
@@ -121,11 +117,12 @@ def build_default_encoder(config: Dict, hovernet_config: Dict,
     want_typing = (enc_name in ("kimia", "efficientnet-b4")
                    and config.get("node_type_dir") is None
                    and bool(config.get("inline_typing", True)))
-    check_encoder(config, resolve_device(device))
+    check_encoder(config)
     batch = int(hovernet_config.get("batch_size", 32) or 32)
     return make_encoder(enc_name, config, hovernet_config, kimianet_config,
                         with_typing=want_typing, pad_batch_to=batch,
-                        device=device)
+                        device=device,
+                        devices=encoder_mesh(config, resolve_device(device)))
 
 
 class GraphConstructor:
@@ -243,7 +240,7 @@ def construct_all(graph_config: Dict, hovernet_config: Dict,
 
     dev = resolve_device(device)
     if encoder is None:
-        check_encoder(graph_config, dev)
+        check_encoder(graph_config)
     out_dir = Path(graph_config["out_dir"])
     for kind in ("heterogeneous", "homogeneous", "node_types"):
         (out_dir / kind).mkdir(parents=True, exist_ok=True)

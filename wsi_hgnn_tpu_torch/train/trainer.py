@@ -4,9 +4,17 @@ It picks the training path as the JAX trainer does: the [B, N, k] lattice
 twin when the model has one (HEAT2/HEAT4 with a mean/sum/max readout),
 `train.lattice` is not off, every train graph packs into the lattice and
 the JAX package's one-hot memory budget (`train.lattice_mem_budget`, 2 GiB)
-fits the batch; the TypedGraph model otherwise. The JAX package's
-`big_graph` mode (edge store sharded over several devices) is not ported:
-where it would be chosen the trainer raises.
+fits the batch; the TypedGraph model otherwise. Big-graph mode takes
+precedence over both: in a `torch.distributed` world of more than one
+process (`torchrun`, main.py) whose batch edge capacity exceeds
+`train.big_graph_edge_threshold` (1,000,000), the capacity is rounded up
+to a multiple of the world and every step runs on this rank's slice of
+the edge store (parallel/big_graph.py), with the single-device
+gradients; a world outside big-graph mode (a smaller batch, or ASAPGCN,
+whose edges do not shard) says on rank 0 that the other ranks duplicate
+its work. A single process that sees several cards and such a batch
+says how to launch under torchrun and trains on its one card. Rank 0
+alone writes checkpoints and logs.
 
 One step is the training augmentation (masks drawn from the trainer's
 torch.Generator on the device), the forward pass in training mode
@@ -43,6 +51,9 @@ from ..graph.typed_graph import TypedGraph, to_homogeneous
 from ..models.lattice import (LatticeGraph, TrainMasks, apply_train_masks,
                               draw_train_masks)
 from ..models.layers import DropSource
+from ..parallel.big_graph import (edge_shardable, local_edges,
+                                  make_big_graph_train_step)
+from ..parallel.mesh import distributed, make_mesh
 from ..profiling import GLOBAL_TIMER
 from ..utils import resolve_device, set_cuda_numerics, to_numpy, to_torch
 from .checkpoint import (CheckpointManager, generator_key,
@@ -154,20 +165,36 @@ class GNNTrainer:
             self.train_data, self.batch_size, max_pad_ratio=float(
                 self.config_train.get("lattice_pad_ratio", 1.5)))
 
-        n_dev = (torch.cuda.device_count() if self.device.type == "cuda"
-                 else 1)
+        typed, self.is_hetero = parse_gnn_model(config_gnn)
+        self.mesh = make_mesh(device=self.device) if distributed() else None
+        world = 1 if self.mesh is None else self.mesh.world
+        self.rank = 0 if self.mesh is None else self.mesh.rank
         threshold = self.config_train.get("big_graph_edge_threshold",
                                           1_000_000)
-        if n_dev > 1 and cap_e > threshold:
-            raise NotImplementedError(
-                f"batch edge capacity {cap_e} > big_graph_edge_threshold "
-                f"{threshold} with {n_dev} devices selects the JAX package's "
-                "big-graph mode (edges sharded over devices), which is not "
-                "ported yet (ROADMAP.md item 15)")
+        self.big_graph = (world > 1 and cap_e > threshold
+                          and edge_shardable(typed))
+        if self.big_graph:   # a multiple of the world: equal slices
+            cap_e = -(-cap_e // world) * world
+        elif world > 1:
+            why = (f"{type(typed).__name__} does not shard its edges"
+                   if cap_e > threshold else
+                   f"batch edge capacity {cap_e} <= "
+                   f"big_graph_edge_threshold {threshold}")
+            self.log(f"not in big-graph mode ({why}): each of the {world} "
+                     "ranks trains the whole model on the same batches, so "
+                     "ranks other than 0 duplicate its work")
+        elif cap_e > threshold and world == 1 and (
+                self.device.type == "cuda" and torch.cuda.device_count() > 1):
+            n = torch.cuda.device_count()
+            print(f"batch edge capacity {cap_e} > big_graph_edge_threshold "
+                  f"{threshold}: to shard the edges over this host's {n} "
+                  f"cards run one process per card, `torchrun "
+                  f"--nproc-per-node {n} -m wsi_hgnn_tpu_torch.main -config "
+                  "<yml>`; training on one card")
 
-        typed, self.is_hetero = parse_gnn_model(config_gnn)
         twin = (parse_lattice_twin(config_gnn)
-                if self.is_hetero and lattice_enabled(config) else None)
+                if self.is_hetero and lattice_enabled(config)
+                and not self.big_graph else None)
         budget = self.config_train.get("lattice_mem_budget", 2 << 30)
         self.lattice = (twin is not None and probe is not None
                         and lattice_batch_for_budget(
@@ -189,22 +216,37 @@ class GNNTrainer:
             typed.to(self.device)
             self.splits = SplitEvaluator(config, typed, True, twin,
                                          self.device)
-            print(f"lattice mode: k={self.k} (masked padding for shorter "
-                  f"rows), node capacity {lat_cap_n}")
+            self.log(f"lattice mode: k={self.k} (masked padding for "
+                     f"shorter rows), node capacity {lat_cap_n}")
         else:
+            # big-graph batches stay on the host: each rank moves its slice
             self.loader = GraphLoader(self.train_data, self.batch_size,
                                       shuffle=True, seed=seed,
                                       node_capacity=cap_n,
                                       edge_capacity=cap_e,
-                                      device=self.device)
+                                      device=None if self.big_graph
+                                      else self.device)
             self.splits = SplitEvaluator(config, typed, self.is_hetero, None,
                                          self.device)
-            print(f"TypedGraph mode: batch capacities {cap_n} nodes, "
-                  f"{cap_e} edges")
+            if self.big_graph:
+                self._big_step = make_big_graph_train_step(
+                    self.model, self.optimizer, self.loss_fcn,
+                    self.is_hetero, self.mesh)
+                self.log(f"big-graph mode: edge store sharded over {world} "
+                         f"ranks (capacity {cap_e} > threshold {threshold})")
+            else:
+                self.log(f"TypedGraph mode: batch capacities {cap_n} nodes, "
+                         f"{cap_e} edges")
         self._eval_data: Dict[str, tuple] = {}
         self.start_epoch = 0
         if self.checkpoint_manager.version > 0:
             self._resume()
+
+    def log(self, msg: str) -> None:
+        """Print on rank 0 (every rank of a process group trains; one
+        logs)."""
+        if self.rank == 0:
+            print(msg)
 
     def _resume(self) -> None:
         """Params, running statistics, optimizer state and generator of
@@ -219,12 +261,16 @@ class GNNTrainer:
                                      state["opt_state"], self.config_optim)
             set_generator_state(self.generator, state["rng"])
         except (FileNotFoundError, KeyError, ValueError) as e:
-            print(f"Could not resume from checkpoint ({e}); starting fresh")
+            self.log(f"Could not resume from checkpoint ({e}); starting "
+                     "fresh")
             return
         self.start_epoch = self.checkpoint_manager.version
-        print(f"Resumed from checkpoint v{self.start_epoch}")
+        self.log(f"Resumed from checkpoint v{self.start_epoch}")
 
     def train_step(self, g, labels: torch.Tensor, weights: torch.Tensor):
+        if self.big_graph:
+            return self._big_step(local_edges(g, self.mesh), labels, weights,
+                                  self.generator)
         if self.lattice:
             return lattice_train_step(self.model, self.optimizer,
                                       self.loss_fcn, g, labels, weights,
@@ -234,7 +280,7 @@ class GNNTrainer:
                                 self.generator)
 
     def train(self, log_every: int = 1) -> Dict[str, float]:
-        print("Start training GNN")
+        self.log("Start training GNN")
         last_stats: Dict[str, float] = {}
         for epoch in range(self.start_epoch, self.n_epoch):
             t0 = time.time()
@@ -289,12 +335,17 @@ class GNNTrainer:
                 "Testing Recall": test_m["recall"],
                 "Testing AUC": test_m["auc"],
             }
-            self.checkpoint_manager.write_new_version(
-                self.config, self.checkpoint_state(), epoch_stats)
-            self.checkpoint_manager.remove_old_version()
+            # every rank draws the checkpoint's key (it reseeds the
+            # generator, whose draws the ranks of a big-graph run share);
+            # rank 0 alone writes
+            state = self.checkpoint_state()
+            if self.rank == 0:
+                self.checkpoint_manager.write_new_version(
+                    self.config, state, epoch_stats)
+                self.checkpoint_manager.remove_old_version()
             last_stats = epoch_stats
             if log_every and (epoch % log_every == 0):
-                print(f"Epoch {epoch} | loss {res:.4f} | acc {acc:.4f} | "
+                self.log(f"Epoch {epoch} | loss {res:.4f} | acc {acc:.4f} | "
                       f"val auc {val_m['auc']:.4f} | test auc "
                       f"{test_m['auc']:.4f} | {time.time() - t0:.2f}s")
         return last_stats
