@@ -136,6 +136,35 @@ def test_knn_kernel_large_slide_equals_tiled(cuda):
     assert torch.equal(i_k, i_p) and torch.equal(d_k, d_p)
 
 
+@pytest.mark.parametrize("impl", ["exact", "approx", "pallas"])
+def test_knn_lookup_every_impl_launches_the_kernel(cuda, impl):
+    """'approx' on the card is the kernel too (exact neighbours), and so
+    are build_edges_device and knn_edges, which a user calls directly."""
+    from wsi_hgnn_tpu_torch.graph import build_edges_device
+    from wsi_hgnn_tpu_torch.ops.knn import knn_edges, knn_lookup
+
+    n = 1000
+    x = torch.from_numpy(_exact_features(n, 64, seed=2))
+    mask = torch.arange(n) < n - 30
+    i_p, d_p = kknn.knn_l2_reference(x, 8, mask)
+    before = kknn.knn_l2_fused.launches
+    i_k, d_k = knn_lookup(x.to(cuda), 8, mask.to(cuda), impl=impl)
+    e_k = build_edges_device(x.to(cuda), 9, mask.to(cuda), knn_impl=impl)
+    s_k, t_k = knn_edges(x.to(cuda), 8, mask.to(cuda))
+    torch.cuda.synchronize()
+    assert kknn.knn_l2_fused.launches == before + 3
+    assert torch.equal(i_k.cpu(), i_p) and torch.equal(d_k.cpu(), d_p)
+    e_p = build_edges_device(x, 9, mask, knn_impl=impl)
+    for i in (0, 1, 4):                  # src, dst, edge_mask
+        assert torch.equal(e_k[i].cpu(), e_p[i])
+    assert torch.allclose(e_k[3].cpu(), e_p[3], atol=1e-5)
+    clear = e_p[3].abs() > 1e-5          # esign = sim > 0, where sim clears
+    assert torch.equal(e_k[2].cpu()[clear], e_p[2][clear])
+    assert torch.equal(t_k.cpu(), i_p.reshape(-1))
+    assert torch.equal(s_k.cpu(), torch.arange(n, dtype=torch.int32
+                                               ).repeat_interleave(8))
+
+
 def test_knn_kernel_rejects_what_it_cannot_take(cuda):
     x = torch.zeros(64, 8, device=cuda)
     with pytest.raises(ValueError):

@@ -112,6 +112,31 @@ def test_feature_requests_are_grouping_invariant(served):
     pred.warmup(64)
 
 
+def test_predictor_with_knn_impl_approx_reaches_the_knn(served, monkeypatch):
+    """A predictor built with knn_impl 'approx' asks the KNN for 'approx'
+    on every slide and answers as the exact one does (the port's approx
+    returns the exact neighbours)."""
+    from wsi_hgnn_tpu_torch.ops import knn as tknn
+
+    _, pred, _ = served
+    rng = np.random.RandomState(4)
+    slides = [(rng.randn(n, 1024).astype(np.float32),
+               rng.randint(0, 6, n).astype(np.int32)) for n in (40, 70)]
+    want = pred.predict_many(slides)
+    seen = []
+    real = tknn.knn_lookup
+
+    def recording(*args, impl="exact", **kw):
+        seen.append(impl)
+        return real(*args, impl=impl, **kw)
+
+    monkeypatch.setattr(tknn, "knn_lookup", recording)
+    monkeypatch.setattr(pred, "knn_impl", "approx")
+    got = pred.predict_many(slides)
+    assert seen == ["approx", "approx"]
+    np.testing.assert_array_equal(got, want)
+
+
 def test_entry_points_never_fall_back_to_cpu(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -6,7 +6,7 @@ it packs into the [B, N, k] `LatticeGraph` form; graphs with shorter rows
 (imports where a neighbour is missing) pack too, their empty slots masked
 by emask. `probe_lattice_and_capacities` scans a dataset once and returns
 the shared lattice geometry iff every graph packs and the padding stays
-within `max_pad_ratio`.
+within `max_pad_ratio`; `probe_lattice` is that probe alone.
 
 Batches are packed as numpy on a background thread and go to the device
 once per batch (`utils.to_torch`), index leaves as int64.
@@ -43,6 +43,23 @@ def slide_lattice_geometry(
         return None
     counts = np.bincount(src, minlength=n)
     return int(counts.max()), e, n
+
+
+def slide_regular_k(g: TypedGraph) -> Optional[int]:
+    """k if the single graph is k-regular in out-degree, else None."""
+    geo = slide_lattice_geometry(g)
+    if geo is None:
+        return None
+    k, e, n = geo
+    return k if e == n * k else None
+
+
+def probe_lattice(dataset, max_pad_ratio: float = 1.5
+                  ) -> Optional[Tuple[int, int]]:
+    """(k, lattice node capacity) if every graph of the dataset packs into
+    one shared [N, k] masked lattice, else None."""
+    return probe_lattice_and_capacities(dataset, 1,
+                                        max_pad_ratio=max_pad_ratio)[2]
 
 
 def probe_lattice_and_capacities(dataset, batch_size: int,

@@ -6,8 +6,9 @@ kernel on the card, one launch per slide) defines the edges, the Pearson
 correlation of the endpoints their sign and weight `sim`, and the
 HoVer-Net node types the node heterogeneity. The lattice builder
 (models/lattice.py) does the per-slide work; here its [B, N, k] form is
-flattened into one batched TypedGraph (`build_batch_device`), or cut to
-one slide's real edges on the host (`build_graph`, graph construction).
+flattened into one batched TypedGraph (`build_batch_device`), into one
+slide's padded edge list (`build_edges_device`), or cut to one slide's
+real edges on the host (`build_graph`, graph construction).
 """
 from __future__ import annotations
 
@@ -17,6 +18,42 @@ import numpy as np
 import torch
 
 from .typed_graph import TypedGraph, bucket_size, from_arrays
+
+
+def build_edges_device(features: torch.Tensor, radius: int,
+                       mask: Optional[torch.Tensor] = None,
+                       knn_impl: str = "exact"):
+    """(src, dst, esign, sim, edge_mask), each [N*(radius-1)], of one padded
+    feature buffer [N, D] on its device: node i's radius-1 KNN edges at
+    slots i*k .. i*k+k-1. Self-edges and edges out of or into padding are
+    masked, with src = dst = 0, sim 0 and esign 0. src, dst and esign
+    are int32, sim f32."""
+    from ..models.lattice import build_lattice_device
+
+    n = features.shape[0]
+    if mask is None:
+        mask = torch.ones(n, dtype=torch.bool, device=features.device)
+    lat = build_lattice_device(
+        features[None], torch.zeros(1, n, dtype=torch.int64,
+                                    device=features.device),
+        mask[None].to(torch.bool), radius, knn_impl=knn_impl)
+    src, dst, esign, sim, emask = (t[0] for t in _lattice_edges(lat))
+    return (src.to(torch.int32), dst.to(torch.int32), esign.to(torch.int32),
+            sim, emask)
+
+
+def _lattice_edges(lat):
+    """(src, dst, esign, sim, edge_mask) [B, N*k] of a lattice, src-major
+    with slide-local ids; masked slots get src = dst = 0, sim 0, esign
+    0."""
+    b, n, k = lat.idx.shape
+    emask = lat.emask
+    src = torch.where(emask, torch.arange(n, device=emask.device
+                                          )[None, :, None], 0)
+    dst = torch.where(emask, lat.idx, 0)
+    sim = torch.where(emask, lat.sim, 0.0)
+    esign = torch.where(emask, lat.esign, 0)
+    return tuple(t.reshape(b, n * k) for t in (src, dst, esign, sim, emask))
 
 
 def build_batch_device(features: torch.Tensor, node_types: torch.Tensor,
@@ -36,16 +73,12 @@ def build_batch_device(features: torch.Tensor, node_types: torch.Tensor,
     lat = build_lattice_device(features, node_types, mask, radius,
                                n_node_types, knn_impl=knn_impl)
     dev = features.device
-    emask = lat.emask
     # masked edges get src = dst = 0 within their slide, then the offset
-    src = torch.where(emask, torch.arange(n, device=dev)[None, :, None], 0)
-    dst = torch.where(emask, lat.idx, 0)
-    offsets = torch.arange(b, device=dev)[:, None, None] * n
+    src, dst, esign, sim, emask = _lattice_edges(lat)
+    offsets = torch.arange(b, device=dev)[:, None] * n
     src = (src + offsets).reshape(-1)
     dst = (dst + offsets).reshape(-1)
-    emask = emask.reshape(-1)
-    sim = torch.where(emask, lat.sim.reshape(-1), 0.0)
-    esign = torch.where(emask, lat.esign.reshape(-1), 0)
+    esign, sim, emask = esign.reshape(-1), sim.reshape(-1), emask.reshape(-1)
     if add_self_loops:
         loop = torch.arange(b * n, device=dev)
         src = torch.cat([src, loop])

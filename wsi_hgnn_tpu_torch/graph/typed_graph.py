@@ -65,6 +65,9 @@ class TypedGraph:
     def replace(self, **changes) -> "TypedGraph":
         return dataclasses.replace(self, **changes)
 
+    def replace_feat(self, feat) -> "TypedGraph":
+        return self.replace(feat=feat)
+
     @property
     def num_nodes(self) -> int:
         return self.feat.shape[0]

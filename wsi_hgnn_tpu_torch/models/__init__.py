@@ -1,6 +1,6 @@
 """Models of the port: the TypedGraph GNN zoo, ASAPGCN, lattice HEAT,
 layers, the MLP baselines, CNN featurizers."""
-from .asap import ASAPGCN, ASAPPooling
+from .asap import ASAPGCN, ASAPPooling, LEConv
 from .heterogeneous import (HEATLayer, HEATNet2, HEATNet4, HetRGCN,
                             HetRGCNLayer, HGT, HGTLayer)
 from .homogeneous import (GAT, GATConvLayer, GCN, GIN, GINConvLayer, GINMLP,
@@ -17,7 +17,7 @@ __all__ = ["ASAPGCN", "ASAPPooling", "DropSource", "GAT", "GATConvLayer",
            "GCN", "GIN", "GINConvLayer", "GINMLP", "GraphConvLayer",
            "HEATLayer", "HEATLayerLattice", "HEATNet2", "HEATNet2Lattice",
            "HEATNet4", "HEATNet4Lattice", "HGT", "HGTLayer", "HetRGCN",
-           "HetRGCNLayer", "LatticeGraph", "LinearAttentionBlock",
+           "HetRGCNLayer", "LEConv", "LatticeGraph", "LinearAttentionBlock",
            "MLP2Layers", "MLP4Layers", "MaskedBatchNorm", "NTPoolGCN",
            "Pool", "TrainMasks", "TypedDense", "TypedHeads",
            "TypedLayerNorm", "apply_train_masks", "build_lattice_device",

@@ -30,7 +30,7 @@ from ..graph.typed_graph import TypedGraph
 from .homogeneous import GraphConvLayer
 from .layers import DropSource, dropout
 
-_NEG_INF = -1e30
+NEG_INF = -1e30
 
 
 def _with_self_loops(g: TypedGraph, edge_weight: torch.Tensor):
@@ -48,7 +48,7 @@ def _with_self_loops(g: TypedGraph, edge_weight: torch.Tensor):
 
 def _no_empty(x: torch.Tensor) -> torch.Tensor:
     """A segment maximum with 0 where the segment held no real entry."""
-    return torch.where(x <= _NEG_INF / 2, 0.0, x)
+    return torch.where(x <= NEG_INF / 2, 0.0, x)
 
 
 class LEConv(nn.Module):
@@ -116,13 +116,13 @@ class ASAPPooling(nn.Module):
         x_pool = self.gnn_intra_cluster(x, dst, src, w, mask)
 
         # master query: per-centre max over incident x_pool
-        xs = torch.where(mask[:, None], gather(x_pool, src), _NEG_INF)
+        xs = torch.where(mask[:, None], gather(x_pool, src), NEG_INF)
         m_q = self.lin_q(_no_empty(segment_max(xs, dst, n)))
 
         # attention over (centre, neighbour) pairs, softmaxed per centre
         pair = torch.cat([gather(m_q, dst), gather(x_pool, src)], -1)
         score = F.leaky_relu(self.gat_att(pair)[:, 0], self.negative_slope)
-        logits = torch.where(mask, score, _NEG_INF)
+        logits = torch.where(mask, score, NEG_INF)
         zmax = _no_empty(segment_max(logits, dst, n))
         ex = torch.where(mask, torch.exp(logits - gather(zmax, dst)), 0.0)
         denom = segment_sum(ex, dst, n)

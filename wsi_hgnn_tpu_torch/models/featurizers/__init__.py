@@ -33,7 +33,8 @@ __all__ = ["DenseNet121", "KimiaNet", "EfficientNet", "EffNetV2", "HoVerNet",
            "convert", "fuse_kimianet", "kimianet_fused_apply",
            "efficientnet_apply", "hovernet_typing_apply",
            "hovernet_full_apply", "node_types_from_tp",
-           "node_types_on_device", "make_cnn_encoder", "make_hovernet"]
+           "node_types_on_device", "make_cnn_encoder", "make_hover_typing",
+           "make_hovernet"]
 
 
 def _norm_pixels(imgs: torch.Tensor) -> torch.Tensor:
@@ -210,6 +211,31 @@ def make_hover_typing_device(hovernet_config: Dict, nr_types: int,
         return hovernet_typing_apply(model, imgs.to(dtype), nr_types)
 
     return typing_dev
+
+
+def make_hover_typing(hovernet_config: Dict, nr_types: int = 6, device=None,
+                      variables: Optional[Dict] = None, seed: int = 0
+                      ) -> Callable[[np.ndarray], np.ndarray]:
+    """The node-typing stage on its own: patches [B, 256, 256, 3] (f32 in
+    [0, 1], or uint8) -> node types [B] int32, both numpy. HoVer-Net's
+    encoder, tp decoder and majority typing run on `device` (the card
+    unless the caller passes "cpu")."""
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        set_cuda_numerics()
+    typing_dev = make_hover_typing_device(hovernet_config, nr_types, dev,
+                                          variables, seed)
+
+    def typing(patches: np.ndarray) -> np.ndarray:
+        arr = np.asarray(patches)
+        if arr.dtype != np.uint8:
+            arr = np.asarray(arr, np.float32)
+        with torch.inference_mode():
+            imgs = torch.from_numpy(np.ascontiguousarray(arr)).to(dev)
+            types = typing_dev(_norm_pixels(imgs))
+        return types.to(torch.int32).cpu().numpy()
+
+    return typing
 
 
 def make_cnn_encoder(name: str, config: Dict, hovernet_config: Dict,

@@ -28,7 +28,8 @@ def main(argv=None):
     p.add_argument("--radius", type=int, default=9,
                    help="KNN radius of the construction operating point")
     p.add_argument("--n-node-types", type=int, default=6)
-    p.add_argument("--knn-impl", default="exact", choices=["exact", "pallas"])
+    p.add_argument("--knn-impl", default="exact",
+                   choices=["exact", "approx", "pallas"])
     p.add_argument("--max-batch", type=int, default=8)
     p.add_argument("--max-wait-ms", type=float, default=5.0)
     p.add_argument("--warmup", type=int, default=0,

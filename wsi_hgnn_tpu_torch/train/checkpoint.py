@@ -56,9 +56,17 @@ class CheckpointManager:
     def save_config(self, config: Dict) -> None:
         self.get_config_file().write_text(json.dumps(config, indent=4))
 
+    def load_config(self) -> str:
+        return self.get_config_file().read_text()
+
     def append_stats(self, stats: Dict) -> None:
         with self.get_stats_file().open("at") as tf:
             tf.write(json.dumps(stats) + "\n")
+
+    def load_stats(self):
+        """The stats file's lines (one JSON object each), lazily."""
+        with self.get_stats_file().open("rt") as tf:
+            yield from tf
 
     # -- model state ---------------------------------------------------- #
     def save_model(self, state: Dict) -> None:

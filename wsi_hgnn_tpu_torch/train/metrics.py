@@ -61,6 +61,11 @@ def binary_auc_from_scores(targets: np.ndarray, scores: np.ndarray) -> float:
     return float((r_pos - n_pos * (n_pos + 1) / 2.0) / (n_pos * n_neg))
 
 
+def binary_auc_from_probs(targets: np.ndarray, probs: np.ndarray) -> float:
+    """Binary AUC ranked by the positive class's probability column."""
+    return binary_auc_from_scores(targets, probs[:, 1])
+
+
 def multiclass_auc_ovr(targets: np.ndarray, probs: np.ndarray) -> float:
     """Macro one-vs-rest AUC over probability columns."""
     aucs = []

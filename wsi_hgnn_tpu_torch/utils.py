@@ -1,6 +1,8 @@
-"""Device resolution, CUDA numerics flags and the numpy <-> torch boundary."""
+"""Device resolution, CUDA numerics flags, the numpy <-> torch boundary and
+the reference's logger."""
 from __future__ import annotations
 
+import logging
 from typing import Optional, Union
 
 import numpy as np
@@ -49,3 +51,17 @@ def to_torch(arr, device: torch.device, dtype: Optional[torch.dtype] = None
 
 def to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().numpy()
+
+
+def get_logger() -> logging.Logger:
+    """The reference's `utils.get_logger`: "main-logger" at INFO with one
+    stream handler."""
+    logger = logging.getLogger("main-logger")
+    logger.setLevel(logging.INFO)
+    if not logger.handlers:
+        handler = logging.StreamHandler()
+        fmt = ("[%(asctime)s %(levelname)s %(filename)s line %(lineno)d "
+               "%(process)d] %(message)s")
+        handler.setFormatter(logging.Formatter(fmt))
+        logger.addHandler(handler)
+    return logger
