@@ -2478,9 +2478,11 @@ def public_api_checks(torch, np, dev, card, kernels, root: Path, hcfg,
     exact-arithmetic features (one KNN launch each; indices, masks and
     signs equal to the CPU plain versions, sim to 1e-5), make_hover_typing
     on a few pool patches (equal to make_hover_typing_device's types),
-    and profiling.trace around one KNN inside annotate("knn"): the trace
-    must hold the KNN kernel among its device events and the annotation.
-    These launches are checks, not main-path launches: none is counted."""
+    and profiling.trace around one KNN inside annotate("knn") and a
+    device span "knn": the trace must hold the KNN kernel among its device
+    events and the annotation, and the spans file beside it the span with
+    its card time and the card's idle time inside it. These launches are
+    checks, not main-path launches: none is counted."""
     import json as _json
 
     from wsi_hgnn_tpu_torch import profiling
@@ -2532,24 +2534,35 @@ def public_api_checks(torch, np, dev, card, kernels, root: Path, hcfg,
     trace_dir = root / "trace"
     g = torch.randn(API_N, KNN_D, device=dev)
     with profiling.trace(str(trace_dir)):
-        with profiling.annotate("knn"):
+        with profiling.annotate("knn"), profiling.span("knn", device=dev):
             knn_lookup(g, RADIUS - 1)
             torch.cuda.synchronize()
-    files = sorted(trace_dir.glob("*.json"))
-    check(len(files) == 1, f"profiling.trace wrote {files}")
+    files = sorted(trace_dir.glob("*.pt.trace.json"))
+    check(len(files) == 1 and len(list(trace_dir.iterdir())) == 2,
+          f"profiling.trace wrote {sorted(trace_dir.iterdir())}")
     events = _json.loads(files[0].read_text())["traceEvents"]
     device = sorted({e["name"] for e in events if e.get("cat") == "kernel"})
     check(any("knn_l2" in name for name in device)
           and any(e.get("name") == "knn" for e in events),
           f"trace holds device kernels {device[:8]} and annotation "
           f"'knn': {any(e.get('name') == 'knn' for e in events)}")
+    knn_span = _json.loads(Path(str(files[0]) + ".spans.json").read_text()
+                           )["spans"].get("knn") or {}
+    check(knn_span.get("count") == 1 and (knn_span.get("device_s") or 0) > 0
+          and knn_span.get("card_idle_s") is not None
+          and 0 <= knn_span["card_idle_s"] <= knn_span["host_s"],
+          f"the spans file beside the trace holds span 'knn' {knn_span}")
     log(f"public helpers on the card: build_edges_device and knn_edges at "
         f"N={API_N} D={KNN_D} radius {RADIUS} (one KNN launch each; indices "
         f"and masks equal to the CPU plain versions, sim max|err| "
         f"{sim_err:.3g} <= 1e-5); make_hover_typing on {N_CHECK} patches "
         f"equal to make_hover_typing_device; profiling.trace holds "
         f"{[n for n in device if 'knn_l2' in n]} and the 'knn' annotation "
-        f"({len(events)} events); {time.perf_counter() - t0:.2f} s [{card}]")
+        f"({len(events)} events), its spans file the span 'knn' (card "
+        f"{knn_span['device_s'] * 1e3:.3f} ms, idle inside "
+        f"{knn_span['card_idle_s'] * 1e3:.3f} ms of "
+        f"{knn_span['host_s'] * 1e3:.3f}); {time.perf_counter() - t0:.2f} s "
+        f"[{card}]")
 
 
 TILE_SLIDE = (8192, 6144)   # px: 32 x 24 tiles of 256

@@ -137,6 +137,38 @@ def test_predictor_with_knn_impl_approx_reaches_the_knn(served, monkeypatch):
     np.testing.assert_array_equal(got, want)
 
 
+def test_server_stats_count_the_queue_wait(served):
+    """GET /stats serves queue_wait_ms_sum: the time requests spent
+    between their enqueue and the batcher taking their group, present
+    from the start and never negative."""
+    import io
+    import json
+    import urllib.request
+
+    from wsi_hgnn_tpu_torch.serve import BatchingServer
+
+    _, pred, _ = served
+    server = BatchingServer(pred, port=0, max_wait_ms=20.0)
+    assert server.stats["queue_wait_ms_sum"] == 0.0
+    server.start()
+    try:
+        rng = np.random.RandomState(5)
+        buf = io.BytesIO()
+        np.savez(buf, features=rng.randn(30, 1024).astype(np.float32))
+        url = f"http://127.0.0.1:{server.port}"
+        with urllib.request.urlopen(urllib.request.Request(
+                url + "/predict", data=buf.getvalue()), timeout=120) as r:
+            assert len(json.loads(r.read())["probs"]) == 2
+        with urllib.request.urlopen(url + "/stats", timeout=120) as r:
+            stats = json.loads(r.read())
+    finally:
+        server.stop()
+    assert stats["requests"] == 1 and stats["errors"] == 0
+    assert stats["queue_wait_ms_sum"] >= 0.0
+    # the lone request waited out the group's 20 ms window
+    assert stats["queue_wait_ms_sum"] >= 15.0
+
+
 def test_entry_points_never_fall_back_to_cpu(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

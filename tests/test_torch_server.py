@@ -160,6 +160,7 @@ def test_concurrent_requests_match_jax_predictor(predictors):
     assert stats["requests"] == 6 and stats["errors"] == 0
     assert stats["batches"] < 6 and stats["batched_requests_max"] >= 2
     assert stats["decode_ms_sum"] > 0 and stats["latency_ms_sum"] > 0
+    assert 0 < stats["queue_wait_ms_sum"] < stats["latency_ms_sum"]
 
 
 def test_version_is_none_for_given_variables(predictors):

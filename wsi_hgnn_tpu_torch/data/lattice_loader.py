@@ -18,6 +18,7 @@ from typing import Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import profiling
 from ..graph.typed_graph import TypedGraph, bucket_size
 from ..models.lattice import LatticeGraph
 from ..utils import to_torch
@@ -178,17 +179,21 @@ class LatticeLoader:
 
     def _make_batch(self, idxs: Sequence[int]):
         """Host numpy batch of the dataset rows `idxs`."""
-        slides, labels = [], []
+        graphs, labels = [], []
         for i in idxs:
-            g, y = self.dataset[i]
-            slides.append(pack_slide(g, self.k, self.node_capacity))
+            with profiling.span("loader/read", step=int(i)):
+                g, y = self.dataset[i]
+            graphs.append(g)
             labels.append(int(y))
-        weights = [1.0] * len(slides)
-        while len(slides) < self.batch_size:
-            slides.append(slides[0])
-            labels.append(0)
-            weights.append(0.0)
-        g = LatticeGraph(*[np.stack(p) for p in zip(*slides)])
+        with profiling.span("loader/pack"):
+            slides = [pack_slide(g, self.k, self.node_capacity)
+                      for g in graphs]
+            weights = [1.0] * len(slides)
+            while len(slides) < self.batch_size:
+                slides.append(slides[0])
+                labels.append(0)
+                weights.append(0.0)
+            g = LatticeGraph(*[np.stack(p) for p in zip(*slides)])
         return g, np.asarray(labels, np.int32), np.asarray(weights, np.float32)
 
     def _index_batches(self) -> List[List[int]]:
@@ -201,4 +206,6 @@ class LatticeLoader:
     def __iter__(self) -> Iterator:
         for g, labels, weights in prefetched_batches(
                 self._index_batches(), self._make_batch, self.prefetch):
-            yield lattice_to_torch(g, self.device), labels, weights
+            with profiling.span("loader/to_device"):
+                g = lattice_to_torch(g, self.device)
+            yield g, labels, weights

@@ -15,6 +15,7 @@ from typing import Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import profiling
 from ..graph.batch import batch_graphs, sort_graph_edges
 from ..graph.typed_graph import TypedGraph, bucket_size, repad_graph
 
@@ -24,7 +25,9 @@ def prefetched_batches(batches: Sequence, make_batch, prefetch: int):
 
     A worker exception re-raises in the consumer (ending the epoch quietly
     would train on a truncated subset), and a consumer that abandons the
-    generator releases the worker."""
+    generator releases the worker. While a profiler runs, each fetch is a
+    `loader/wait` span and a fetch that finds the queue empty counts
+    `loader/starved`."""
     if prefetch <= 0:
         for b in batches:
             yield make_batch(b)
@@ -58,7 +61,10 @@ def prefetched_batches(batches: Sequence, make_batch, prefetch: int):
     t.start()
     try:
         while True:
-            item = q.get()
+            if profiling.recording() and q.empty():
+                profiling.count("loader/starved")
+            with profiling.span("loader/wait"):
+                item = q.get()
             if item is stop:
                 break
             if isinstance(item, BaseException):
@@ -117,7 +123,8 @@ class GraphLoader:
         graphs: List[TypedGraph] = []
         labels: List[int] = []
         for i in idxs:
-            g, y = self.dataset[i]
+            with profiling.span("loader/read", step=int(i)):
+                g, y = self.dataset[i]
             graphs.append(g)
             labels.append(int(y))
         weights = [1.0] * len(graphs)
@@ -125,18 +132,19 @@ class GraphLoader:
             graphs.append(graphs[0])
             labels.append(0)
             weights.append(0.0)
-        if self.stacked:
-            padded = [repad_graph(g, self.node_capacity, self.edge_capacity)
-                      for g in graphs]
-            if self.sort_edges:
-                padded = [sort_graph_edges(g) for g in padded]
-            gb = stack_graphs(padded)
-        else:
-            gb = batch_graphs(graphs, node_capacity=self.node_capacity,
-                              edge_capacity=self.edge_capacity,
-                              bucket_base=self.bucket_base)
-            if self.sort_edges:
-                gb = sort_graph_edges(gb)
+        with profiling.span("loader/pack"):
+            if self.stacked:
+                padded = [repad_graph(g, self.node_capacity,
+                                      self.edge_capacity) for g in graphs]
+                if self.sort_edges:
+                    padded = [sort_graph_edges(g) for g in padded]
+                gb = stack_graphs(padded)
+            else:
+                gb = batch_graphs(graphs, node_capacity=self.node_capacity,
+                                  edge_capacity=self.edge_capacity,
+                                  bucket_base=self.bucket_base)
+                if self.sort_edges:
+                    gb = sort_graph_edges(gb)
         return (gb, np.asarray(labels, np.int32),
                 np.asarray(weights, np.float32))
 
@@ -150,7 +158,9 @@ class GraphLoader:
     def __iter__(self) -> Iterator:
         for g, labels, weights in prefetched_batches(
                 self._index_batches(), self._make_batch, self.prefetch):
-            yield g.to_torch(self.device), labels, weights
+            with profiling.span("loader/to_device"):
+                g = g.to_torch(self.device)
+            yield g, labels, weights
 
 
 def dataset_capacities(dataset, batch_size: int, bucket_base: int = 1024):

@@ -21,6 +21,7 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
+from ...profiling import span
 from ...utils import resolve_device, set_cuda_numerics
 from . import convert
 from .densenet import DenseNet121, KimiaNet, fuse_kimianet, kimianet_fused_apply
@@ -261,7 +262,8 @@ def make_cnn_encoder(name: str, config: Dict, hovernet_config: Dict,
     JAX package's `mesh`; the reference's DataParallel); by default the
     one `device`. The encoder carries the first device's functions as
     `encode.stages` ('kimianet' / 'efficientnet' / 'hovernet'), for
-    per-stage timing."""
+    per-stage timing; while a profiler runs each stage call is a device
+    span `encode/<stage>` (profiling.span)."""
     if devices is None:
         devs = (resolve_device(device),)
     else:
@@ -288,7 +290,9 @@ def make_cnn_encoder(name: str, config: Dict, hovernet_config: Dict,
                 feat_dim=feat_dim), dev)
 
             def full(imgs):
-                return hovernet_full_apply(model, imgs.to(dtype), nr_types)
+                with span("encode/hovernet", device=dev):
+                    return hovernet_full_apply(model, imgs.to(dtype),
+                                               nr_types)
 
             stages.setdefault("hovernet", full)
             return full
@@ -296,7 +300,8 @@ def make_cnn_encoder(name: str, config: Dict, hovernet_config: Dict,
             fp = fuse_kimianet(kimia_variables, dtype=dtype, device=dev)
 
             def feat_part(imgs):
-                return kimianet_fused_apply(fp, imgs.to(dtype))[0]
+                with span("encode/kimianet", device=dev):
+                    return kimianet_fused_apply(fp, imgs.to(dtype))[0]
 
             stage = "kimianet"
         else:
@@ -304,14 +309,20 @@ def make_cnn_encoder(name: str, config: Dict, hovernet_config: Dict,
                                   efficientnet_variables, seed)
 
             def feat_part(imgs):
-                return efficientnet_apply(model, imgs.to(dtype))
+                with span("encode/efficientnet", device=dev):
+                    return efficientnet_apply(model, imgs.to(dtype))
 
             stage = "efficientnet"
         stages.setdefault(stage, feat_part)
         if not with_typing:
             return feat_part
-        typing_dev = make_hover_typing_device(
+        hover_typing = make_hover_typing_device(
             dict(hovernet_config), nr_types, dev, hover_variables, seed)
+
+        def typing_dev(imgs):
+            with span("encode/hovernet", device=dev):
+                return hover_typing(imgs)
+
         stages.setdefault("hovernet", typing_dev)
         return lambda imgs: (feat_part(imgs), typing_dev(imgs))
 

@@ -37,6 +37,7 @@ import torch.distributed as dist
 
 from ..data.loader import stack_graphs
 from ..graph.typed_graph import TypedGraph
+from ..profiling import span
 from ..utils import resolve_device, to_torch
 
 DATA_AXIS = "data"
@@ -125,7 +126,9 @@ def make_sharded_batch_apply(fn: Callable, devices) -> Callable:
     `apply(batch)`: the batch (host or any device) split into
     len(devices) equal contiguous parts (the caller pads: the batch must
     divide), each run on its device, the results joined in order on the
-    host. One replica per distinct device; no collective."""
+    host. One replica per distinct device; no collective. While a
+    profiler runs, the copies to the devices are an `encode/upload` span
+    and the join on the host an `encode/download` span."""
     devs = _device_list(devices)
     replicas = {}
     for d in devs:
@@ -138,12 +141,16 @@ def make_sharded_batch_apply(fn: Callable, devices) -> Callable:
             raise ValueError(f"batch of {b} does not divide over {n} "
                              "devices; pad it first")
         per = b // n
-        if batch.device.type == "cpu" and any(d.type == "cuda" for d in devs):
-            batch = batch.pin_memory()   # asynchronous copies to the cards
+        with span("encode/upload"):
+            if batch.device.type == "cpu" and any(d.type == "cuda"
+                                                  for d in devs):
+                batch = batch.pin_memory()   # asynchronous copies to the cards
+            parts = [batch[i * per:(i + 1) * per].to(d, non_blocking=True)
+                     for i, d in enumerate(devs)]
         # launch every part before reading any result back
-        outs = [replicas[d](batch[i * per:(i + 1) * per].to(
-                    d, non_blocking=True)) for i, d in enumerate(devs)]
-        return _join(outs)
+        outs = [replicas[d](part) for part, d in zip(parts, devs)]
+        with span("encode/download"):
+            return _join(outs)
 
     apply.devices = devs
     return apply

@@ -44,7 +44,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from . import convert
+from . import convert, profiling
 from .config import parse_gnn_model, parse_lattice_twin
 from .data.lattice_loader import lattice_batch_for_budget
 from .graph.build import build_batch_device
@@ -104,10 +104,12 @@ class SlidePredictor:
 
     def reset_timing(self) -> None:
         """Zero the overhead-split counters. A first call at a group shape
-        (first kernel build, allocator growth) is booked to compile_ms."""
+        (first kernel build, allocator growth) is booked to compile_ms.
+        The pack and the wait for the device lock are spans
+        (`predict/pack`, `predict/lock_wait`), recorded while a profiler
+        runs."""
         self.timing = {
-            "pack_ms": 0.0, "lock_wait_ms": 0.0, "device_ms": 0.0,
-            "compile_ms": 0.0, "calls": 0, "cold_calls": 0,
+            "device_ms": 0.0, "compile_ms": 0.0, "calls": 0, "cold_calls": 0,
             "featurize_ms": 0.0, "featurize_chunks": 0,
         }
 
@@ -148,7 +150,11 @@ class SlidePredictor:
 
     def featurize(self, pixels: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
         """Patch pixels [N, P, P, 3] (uint8, or f32 in [0, 1]) -> (features
-        [N, D] f32, node_types [N] int32), chunk by chunk."""
+        [N, D] f32, node_types [N] int32), chunk by chunk. While a
+        profiler runs each chunk is a `featurize/chunk` span, and the
+        card's time from the end of a chunk's last device span (the
+        encoder's CNN stages) to the start of the next chunk's first is
+        added to the counter `featurize/chunk_gap_ns`."""
         if not self.pixels_enabled:
             raise RuntimeError("pixels not enabled: call enable_pixels()")
         px = np.asarray(pixels)
@@ -160,11 +166,18 @@ class SlidePredictor:
         feats, types = [], []
         with self._lock:
             t0 = time.perf_counter()
+            last = None
             for i in range(0, len(px), self._chunk):
-                f, t = self._encoder(px[i:i + self._chunk])
-                feats.append(np.asarray(f, np.float32))
-                types.append(np.zeros(len(f), np.int32) if t is None
-                             else np.asarray(t, np.int32))
+                with profiling.span("featurize/chunk",
+                                    step=i // self._chunk) as chunk:
+                    f, t = self._encoder(px[i:i + self._chunk])
+                    feats.append(np.asarray(f, np.float32))
+                    types.append(np.zeros(len(f), np.int32) if t is None
+                                  else np.asarray(t, np.int32))
+                if last is not None:
+                    profiling.count_elapsed("featurize/chunk_gap_ns",
+                                            last.dev_last, chunk.dev_first)
+                last = chunk
                 self.timing["featurize_chunks"] += 1
             self.timing["featurize_ms"] += (time.perf_counter() - t0) * 1e3
         return np.concatenate(feats), np.concatenate(types)
@@ -210,21 +223,25 @@ class SlidePredictor:
             max_batch=batch) == batch
 
     def _predict_lattice(self, feats, ntypes, mask) -> torch.Tensor:
-        g = build_lattice_device(feats, ntypes, mask, self.radius,
-                                 self.n_node_types, knn_impl=self.knn_impl)
-        return torch.softmax(self.model(g), dim=-1)
+        with profiling.span("predict/graph", device=self.device):
+            g = build_lattice_device(feats, ntypes, mask, self.radius,
+                                     self.n_node_types, knn_impl=self.knn_impl)
+        with profiling.span("predict/model", device=self.device):
+            return torch.softmax(self.model(g), dim=-1)
 
     def _predict_typed(self, feats, ntypes, mask) -> torch.Tensor:
         """One forward per slide, each on its own graph."""
         out = []
         for i in range(feats.shape[0]):
-            g = build_batch_device(
-                feats[i:i + 1], ntypes[i:i + 1], mask[i:i + 1], self.radius,
-                self.n_node_types, knn_impl=self.knn_impl,
-                add_self_loops=not self.is_hetero)
-            if not self.is_hetero:
-                g = to_homogeneous(g)
-            out.append(torch.softmax(self.typed_model(g), dim=-1))
+            with profiling.span("predict/graph", device=self.device, step=i):
+                g = build_batch_device(
+                    feats[i:i + 1], ntypes[i:i + 1], mask[i:i + 1],
+                    self.radius, self.n_node_types, knn_impl=self.knn_impl,
+                    add_self_loops=not self.is_hetero)
+                if not self.is_hetero:
+                    g = to_homogeneous(g)
+            with profiling.span("predict/model", device=self.device, step=i):
+                out.append(torch.softmax(self.typed_model(g), dim=-1))
         return torch.cat(out)
 
     def predict_many(self, slides: Sequence[Tuple[np.ndarray,
@@ -232,26 +249,29 @@ class SlidePredictor:
                      ) -> np.ndarray:
         """[(features [N_i, D], node_types [N_i] | None)] -> probs [B, C]
         for a group padded to one bucket."""
-        t0 = time.perf_counter()
-        feats, ntypes, mask = self.pack(slides)
-        lattice = self.uses_lattice(*feats.shape[:2])
+        with profiling.span("predict/pack"):
+            feats, ntypes, mask = self.pack(slides)
+            lattice = self.uses_lattice(*feats.shape[:2])
         fn = self._predict_lattice if lattice else self._predict_typed
-        t1 = time.perf_counter()
-        with self._lock:
-            t2 = time.perf_counter()
+        with profiling.span("predict/lock_wait"):
+            self._lock.acquire()
+        try:
+            t0 = time.perf_counter()
             key = (lattice,) + feats.shape[:2]
             cold = key not in self._warm_keys
             with torch.inference_mode():
-                probs = to_numpy(fn(to_torch(feats, self.device),
-                                    to_torch(ntypes, self.device),
-                                    to_torch(mask, self.device)))
-            t3 = time.perf_counter()
+                out = fn(to_torch(feats, self.device),
+                         to_torch(ntypes, self.device),
+                         to_torch(mask, self.device))
+                with profiling.span("predict/download"):
+                    probs = to_numpy(out)
+            t1 = time.perf_counter()
             self._warm_keys.add(key)
-            self.timing["pack_ms"] += (t1 - t0) * 1e3
-            self.timing["lock_wait_ms"] += (t2 - t1) * 1e3
-            self.timing["compile_ms" if cold else "device_ms"] += (t3 - t2) * 1e3
+            self.timing["compile_ms" if cold else "device_ms"] += (t1 - t0) * 1e3
             self.timing["calls"] += 1
             self.timing["cold_calls"] += int(cold)
+        finally:
+            self._lock.release()
         return probs
 
     def predict(self, features: np.ndarray,
@@ -275,7 +295,7 @@ class SlidePredictor:
 # --------------------------------------------------------------------- #
 class _Request:
     __slots__ = ("features", "node_types", "pixels", "bucket", "event",
-                 "probs", "error")
+                 "probs", "error", "enqueued")
 
     def __init__(self, features, node_types, pixels=None):
         self.features = features
@@ -290,6 +310,7 @@ class _Request:
         self.event = threading.Event()
         self.probs: Optional[np.ndarray] = None
         self.error: Optional[str] = None
+        self.enqueued = 0.0   # perf_counter at submit()
 
 
 class BatchingServer:
@@ -320,6 +341,8 @@ class BatchingServer:
             "requests": 0, "batches": 0, "errors": 0,
             "batched_requests_max": 0, "latency_ms_sum": 0.0,
             "decode_ms_sum": 0.0,  # body read + npz decode, per request
+            # submit() to the batcher closing the request's group
+            "queue_wait_ms_sum": 0.0,
         }
         self._stats_lock = threading.Lock()
         self._stop = threading.Event()
@@ -361,6 +384,7 @@ class BatchingServer:
     def submit(self, req: _Request) -> None:
         """Queue `req` and wait until the batcher (or shutdown) completes
         it."""
+        req.enqueued = time.perf_counter()
         self.queue.put(req)
         if self._stop.is_set():
             # raced with shutdown: the batcher's drain may already have run
@@ -430,6 +454,10 @@ class BatchingServer:
                 (group if r.bucket == first.bucket else skipped).append(r)
             # other-bucket arrivals keep their order for the next round
             self._backlog.extendleft(reversed(skipped))
+            taken = time.perf_counter()
+            with self._stats_lock:
+                self.stats["queue_wait_ms_sum"] += sum(
+                    taken - r.enqueued for r in group) * 1e3
             try:
                 if first.pixels is not None:
                     # featurize each slide, then the feature path; padding

@@ -54,7 +54,7 @@ from ..models.layers import DropSource
 from ..parallel.big_graph import (edge_shardable, local_edges,
                                   make_big_graph_train_step)
 from ..parallel.mesh import distributed, make_mesh
-from ..profiling import GLOBAL_TIMER
+from ..profiling import GLOBAL_TIMER, span
 from ..utils import resolve_device, set_cuda_numerics, to_numpy, to_torch
 from .checkpoint import (CheckpointManager, generator_key,
                          load_opt_state_from_flax, opt_state_to_flax,
@@ -88,13 +88,16 @@ def _step(model, optimizer, loss_fn, forward, labels, weights):
     took no part, optimizer step. Returns (loss, softmax probabilities)."""
     model.train()
     optimizer.zero_grad(set_to_none=False)
-    logits = forward()
-    loss = loss_fn(logits, labels, weights)
-    loss.backward()
-    for p in model.parameters():
-        if p.grad is None:
-            p.grad = torch.zeros_like(p)
-    optimizer.step()
+    with span("forward"):
+        logits = forward()
+        loss = loss_fn(logits, labels, weights)
+    with span("backward"):
+        loss.backward()
+        for p in model.parameters():
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+    with span("optimizer"):
+        optimizer.step()
     return loss.detach(), torch.softmax(logits.detach(), -1)
 
 
@@ -107,9 +110,10 @@ def lattice_train_step(model, optimizer: torch.optim.Optimizer, loss_fn,
     """One lattice training step in place on `model` and `optimizer`. The
     augmentation masks and the dropout masks are drawn from `generator`
     unless given. Returns (loss, softmax probabilities), on the device."""
-    if masks is None:
-        masks = draw_train_masks(g, generator, AUG_P)
-    g = apply_train_masks(g, masks)
+    with span("augment"):
+        if masks is None:
+            masks = draw_train_masks(g, generator, AUG_P)
+        g = apply_train_masks(g, masks)
     return _step(model, optimizer, loss_fn,
                  lambda: model(g, generator=generator, drop_masks=drop_masks),
                  labels, weights)
@@ -127,11 +131,12 @@ def typed_train_step(model, optimizer: torch.optim.Optimizer, loss_fn,
     augmentation masks are drawn from `generator` unless given, and the
     dropout masks come from `drops` (by default drawn from `generator`).
     Returns (loss, softmax probabilities), on the device."""
-    if not is_hetero:
-        g = to_homogeneous(g)
-    if masks is None:
-        masks = transforms.draw_train_masks(g, generator, AUG_P)
-    g = transforms.apply_train_masks(g, masks)
+    with span("augment"):
+        if not is_hetero:
+            g = to_homogeneous(g)
+        if masks is None:
+            masks = transforms.draw_train_masks(g, generator, AUG_P)
+        g = transforms.apply_train_masks(g, masks)
     if drops is None:
         drops = DropSource(generator)
     return _step(model, optimizer, loss_fn, lambda: model(g, drops),
@@ -268,16 +273,19 @@ class GNNTrainer:
         self.log(f"Resumed from checkpoint v{self.start_epoch}")
 
     def train_step(self, g, labels: torch.Tensor, weights: torch.Tensor):
-        if self.big_graph:
-            return self._big_step(local_edges(g, self.mesh), labels, weights,
-                                  self.generator)
-        if self.lattice:
-            return lattice_train_step(self.model, self.optimizer,
-                                      self.loss_fcn, g, labels, weights,
-                                      self.generator)
-        return typed_train_step(self.model, self.optimizer, self.loss_fcn,
-                                g, labels, weights, self.is_hetero,
-                                self.generator)
+        """One step of the trainer's path; while a profiler runs, a
+        `train/step` span with the card's time of the step."""
+        with span("train/step", device=self.device):
+            if self.big_graph:
+                return self._big_step(local_edges(g, self.mesh), labels,
+                                      weights, self.generator)
+            if self.lattice:
+                return lattice_train_step(self.model, self.optimizer,
+                                          self.loss_fcn, g, labels, weights,
+                                          self.generator)
+            return typed_train_step(self.model, self.optimizer,
+                                    self.loss_fcn, g, labels, weights,
+                                    self.is_hetero, self.generator)
 
     def train(self, log_every: int = 1) -> Dict[str, float]:
         self.log("Start training GNN")
@@ -286,10 +294,9 @@ class GNNTrainer:
             t0 = time.time()
             loss_dev, prob_dev, labels_host, weights_host = [], [], [], []
             for g, labels, weights in self.loader:
-                with GLOBAL_TIMER.stage("train/step"):
-                    loss, prob = self.train_step(
-                        g, to_torch(labels, self.device, torch.int64),
-                        to_torch(weights, self.device))
+                loss, prob = self.train_step(
+                    g, to_torch(labels, self.device, torch.int64),
+                    to_torch(weights, self.device))
                 loss_dev.append(loss)
                 prob_dev.append(prob)
                 labels_host.append(labels)
