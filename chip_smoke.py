@@ -13,15 +13,19 @@
 2. Kernel phases: each kernel against its plain PyTorch version at the
    main path's shapes (the bf16 dense layer at all 58 layers of a
    128-patch chunk; the KNN bit-equal on exact data, with ragged, tiny
-   and all-ties slides, and at every size N = 384 .. 16384), with the
-   tolerance printed beside the error.
+   and all-ties slides, and at every size N = 384 .. 16384; HoVer-Net's
+   `bn_act` bit-equal in its three forms at a chunk's d0-d3 maps), with
+   the tolerance printed beside the error; then HoVer-Net typing of one
+   chunk timed four ways (bn_act or the plain ops, each with the
+   convolutions padding themselves or with tf_same_pad copies).
 3. The slice: `SlidePredictor` at the width of
    configs/BRCA/HEAT4_kimia_classification.yml, pixels in (KimiaNet
    features + HoVer-Net typing, bf16), exact KNN + Pearson lattice,
    HEAT4, softmax; requests of 2048, 1000 and 300 patches. The kernel
    launch counters are zeroed just before and read just after.
 4. Timing lines (one line per main-path shape: each KNN size, each
-   dense block, each transition, with ms/launch, bound and share of the
+   dense block, each transition, each bn_act map size over its three
+   forms, with ms/launch, bound and share of the
    bound; host clock per stage), and a torch.profiler pass over the last
    request: the device's busy share and the kernels that took the most
    device time. Kernel times are card-bound (`cuda_ms`): a
@@ -571,6 +575,152 @@ def transition_phase(torch, dn, dev, gen, card):
                 per_shape=per_shape)
 
 
+# HoVer-Net's residual block outputs of a chunk: (H, C) at d0, d1, d2, d3
+BN_ACT_MAPS = ((256, 256), (128, 512), (64, 1024), (32, 2048))
+BN_ACT_FORMS = (("relu(bn(x))", False, False), ("sum kept", True, True),
+                ("sum dropped", True, False))   # (form, residual, keep_sum)
+HOVER_REPS = 3      # timed typing forwards of a chunk per variant
+
+
+def _pad_copy_route(torch, thv, model):
+    """A copy of the typing net whose self-padding convolutions pad with
+    tf_same_pad copies first, as the net ran before they padded
+    themselves (the yardstick for the pads; the port never runs it)."""
+    import copy
+
+    class PadThenConv(torch.nn.Module):
+        def __init__(self, conv):
+            super().__init__()
+            self.k, self.conv = conv.kernel_size[0], copy.deepcopy(conv)
+            self.conv.padding = (0, 0)
+
+        def forward(self, x):
+            return self.conv(thv.tf_same_pad(x, self.k, 1))
+
+    route = copy.deepcopy(model)
+    for owner in list(route.modules()):
+        for name, child in list(owner.named_children()):
+            if isinstance(child, torch.nn.Conv2d) and child.padding != (0, 0):
+                setattr(owner, name, PadThenConv(child))
+    return route
+
+
+def bn_act_phase(torch, dev, card):
+    """bn_act against its plain version at a chunk's four residual-block
+    map sizes (bf16, the three forms: outputs and sums bit for bit), one
+    timing line per size over the three forms (bytes: 2, 4 and 3 map
+    passes); then HoVer-Net typing over one seeded chunk, ms a patch, in
+    four variants: the port (bn_act, pads in the convolutions), the plain
+    composition (bn_relu_reference), the pad copies (tf_same_pad before
+    the symmetric convolutions), and both (the net before bn_act): the
+    first two must agree bit for bit."""
+    from wsi_hgnn_tpu_torch import convert
+    from wsi_hgnn_tpu_torch.kernels import hovernet as kh
+    from wsi_hgnn_tpu_torch.models.featurizers import hovernet as thv
+
+    gen = torch.Generator(device=dev).manual_seed(21)
+    per_shape, bounds = [], []
+    total_ms = total_plain = total_issued = 0.0
+    for h, c in BN_ACT_MAPS:
+        shape = (CHUNK, c, h, h)
+        bn = torch.nn.BatchNorm2d(c).to(dev).eval()
+        with torch.no_grad():
+            bn.weight.copy_(torch.rand(c, generator=gen, device=dev) + 0.5)
+            bn.bias.copy_(torch.randn(c, generator=gen, device=dev))
+            bn.running_mean.copy_(torch.randn(c, generator=gen, device=dev))
+            bn.running_var.copy_(torch.rand(c, generator=gen, device=dev)
+                                 + 0.1)
+        bn = bn.to(torch.bfloat16)
+        x, r = (torch.randn(shape, generator=gen, device=dev).to(
+            torch.bfloat16).contiguous(memory_format=torch.channels_last)
+            for _ in range(2))
+        calls, map_bytes = [], x.numel() * 2
+        with torch.inference_mode():
+            for form, res, keep in BN_ACT_FORMS:
+                args = (x, bn, r if res else None, keep)
+                got, want = kh.bn_act(*args), kh.bn_relu_reference(*args)
+                torch.cuda.synchronize()
+                same = (torch.equal(got[0], want[0])
+                        and torch.equal(got[1], want[1]) if keep
+                        else torch.equal(got, want))
+                check(same, f"bn_act {form} at {list(shape)} differs from "
+                      f"the plain ops")
+                del got, want
+                calls.append(args)
+                passes = 2 + (2 if keep else 1 if res else 0)
+                bounds.append(bound(passes * map_bytes, 0.0, "bfloat16"))
+
+            def run(fn):
+                return lambda: [fn(*a) for a in calls]
+            ms = cuda_ms(run(kh.bn_act), reps=5,
+                         what=f"bn_act bfloat16 {list(shape)}")
+            issued = issued_ms(run(kh.bn_act), reps=5)
+            plain = cuda_ms(run(kh.bn_relu_reference), reps=3,
+                            what=f"bn_relu_reference bfloat16 {list(shape)}")
+        forms = ", ".join(f for f, *_ in BN_ACT_FORMS)
+        per_shape.append(shape_line(
+            "bn_act", f"[{CHUNK},{h},{h},{c}] forms {forms}",
+            len(BN_ACT_FORMS), ms, bounds[-len(BN_ACT_FORMS):], card,
+            plain_ms=plain / len(BN_ACT_FORMS), issued=issued))
+        total_ms += ms
+        total_plain += plain
+        total_issued += issued
+        del x, r, calls, bn
+    torch.cuda.empty_cache()
+    n = len(BN_ACT_MAPS) * len(BN_ACT_FORMS)
+    b_ms, b_by = mean_bound(bounds)
+    result = dict(max_abs_err=0.0, ms=total_ms / n, plain_ms=total_plain / n,
+                  bound_ms=b_ms, bound_by=b_by, issued_ms=total_issued / n,
+                  per_shape=per_shape)
+
+    # ---- HoVer-Net typing, ms a patch, the four variants ------------------
+    model = convert.init_flax_like_(thv.HoVerNet.typing(N_TYPES, "fast"), 7)
+    model = model.eval().to(dev, torch.bfloat16,
+                            memory_format=torch.channels_last)
+    route = _pad_copy_route(torch, thv, model)
+    px = torch.rand(CHUNK, PATCH, PATCH, 3, generator=gen, device=dev)
+    xt = thv._nchw(thv._constructor_orientation(px.to(torch.bfloat16)))
+    variants = {}
+    for name, net, plain in (("bn_act, pads in the convolutions", model, False),
+                             ("plain composition", model, True),
+                             ("bn_act, pad copies", route, False),
+                             ("plain composition, pad copies (the net "
+                              "before bn_act)", route, True)):
+        def forward(net=net):
+            return net.decode_branch("tp", net.encode(xt))
+        thv.bn_act = kh.bn_relu_reference if plain else kh.bn_act
+        try:
+            with torch.inference_mode():
+                before = kh.bn_act.launches
+                tp = forward()
+                torch.cuda.synchronize()
+                launched = kh.bn_act.launches - before
+                ms = cuda_ms(forward, reps=HOVER_REPS, warmup=1,
+                             what=f"hovernet typing ({name})")
+        finally:
+            thv.bn_act = kh.bn_act
+        check(launched == (0 if plain else TYPING_LAUNCHES),
+              f"typing forward ({name}) launched bn_act {launched} times")
+        variants[name] = (ms / CHUNK, tp)
+    (fused_ms, tp_f), (plain_ms, tp_p), (copy_ms, tp_c), (parent_ms, tp_0) = \
+        variants.values()
+    check(torch.equal(tp_f, tp_p), "typing with bn_act differs from the "
+          "plain composition")
+    types = [thv.node_types_on_device(t.permute(0, 2, 3, 1), N_TYPES)
+             for t in (tp_f, tp_c)]
+    log(f"timing hovernet typing [{CHUNK},{PATCH},{PATCH},3] ms a patch: "
+        + ", ".join(f"{k} {v[0]:.4g}" for k, v in variants.items())
+        + f"; bn_act alone saves {parent_ms - copy_ms:.4g}, the pads alone "
+        f"{parent_ms - plain_ms:.4g}, both {parent_ms - fused_ms:.4g}; "
+        f"tp logits bn_act = plain bit for bit, pads in the convolutions "
+        f"against pad copies max|diff| "
+        f"{(tp_f.float() - tp_c.float()).abs().max().item():.3g}, node types "
+        f"equal on {int((types[0] == types[1]).sum())}/{CHUNK} [{card}]")
+    del model, route, px, xt, variants, tp_f, tp_p, tp_c, tp_0
+    torch.cuda.empty_cache()
+    return result
+
+
 KERNELS = (
     ("knn_l2_fused", "wsi_hgnn_tpu_torch/csrc/knn.cu",
      "wsi_hgnn_tpu/ops/pallas_knn.py:101"),
@@ -578,6 +728,8 @@ KERNELS = (
      "wsi_hgnn_tpu/ops/pallas_densenet.py:126"),
     ("transition_fused", "wsi_hgnn_tpu_torch/csrc/transition.cu",
      "wsi_hgnn_tpu/ops/pallas_densenet.py:183"),
+    ("bn_act", "wsi_hgnn_tpu_torch/csrc/bn_act.cu",
+     None),    # no TPU kernel: XLA fuses these passes on the TPU
 )
 
 
@@ -593,7 +745,10 @@ RADIUS = 9                 # k = 8, the BRCA graph-construction operating point
 N_TYPES = 6
 PATCH = 256
 REQUESTS = ((2048, 2048), (1000, 1024), (300, 384))   # (patches, size bucket)
-PER_CHUNK = {"dense_layer_fused": 58, "transition_fused": 3}
+TYPING_LAUNCHES = 76      # bn_act a HoVer-Net typing forward: every BNRelu
+DENSENET_PER_CHUNK = {"dense_layer_fused": 58, "transition_fused": 3}
+# a chunk of KimiaNet features with HoVer-Net typing
+PER_CHUNK = {**DENSENET_PER_CHUNK, "bn_act": TYPING_LAUNCHES}
 N_CHECK = 8                # patches of the small-input reference checks
 
 
@@ -677,6 +832,9 @@ def slice_phase(torch, dev, card, kernels, root: Path, gnn=GNN,
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     pred.featurize = featurize
 
+    log(f"bn_act: {per_request[0]['bn_act']} launches for the "
+        f"{requests[0][0]}-patch request ({TYPING_LAUNCHES} a chunk of "
+        f"{chunk})")
     for (n, cap), p, (f, ty), got, s in zip(requests, probs, featurized,
                                             per_request, seconds):
         n_chunks = -(-n // chunk)
@@ -937,7 +1095,7 @@ def server_phase(torch, dev, card, kernels, pred, n=SERVER_N,
     return launches
 
 
-PORT_KERNELS = ("knn_l2", "dense_layer", "transition")   # csrc kernel names
+PORT_KERNELS = ("knn_l2", "dense_layer", "transition", "bn_act")   # csrc kernel names
 
 
 def profile_span(torch, fn, what: str, card: str, top: int = 12):
@@ -2067,7 +2225,7 @@ def mil_tree_phase(torch, dev, card, kernels, root: Path, dn, gen):
     torch.cuda.synchronize()
     launches = kernels.launch_counts()
     finite(gtn, "train_mil gtn on SimCLR features")
-    for name, per in PER_CHUNK.items():
+    for name, per in DENSENET_PER_CHUNK.items():
         check(nb_launch[name] == per * chunks,
               f"nested bags launched {nb_launch[name]} {name}, want "
               f"{per} x {chunks} chunks")
@@ -3415,7 +3573,7 @@ def parallel_phase(torch, dev, card, kernels, root: Path,
                                       device=dev), RADIUS, N_TYPES)
     launches_b = kernels.launch_counts()
     check(launches_b == {"knn_l2_fused": 2, "dense_layer_fused": 0,
-                         "transition_fused": 0},
+                         "transition_fused": 0, "bn_act": 0},
           f"the rank steps' graphs launched {launches_b}")
     labels = np.array([0, 1])
     models, variables = {}, {}
@@ -3470,9 +3628,11 @@ def parallel_phase(torch, dev, card, kernels, root: Path,
         t_sharded = time.perf_counter() - t_a0
         launches_a = kernels.launch_counts()
         # one chunk, split into one part a device: each part is one batch of
-        # the DenseNet kernels; one KNN for the slide graph
+        # the DenseNet kernels and two HoVer-Net forwards (kimia's typing,
+        # hover's encoder); one KNN for the slide graph
         want_a = {"knn_l2_fused": 1,
-                  **{k: v * PAR_DEVICES for k, v in PER_CHUNK.items()}}
+                  **{k: v * PAR_DEVICES for k, v in PER_CHUNK.items()},
+                  "bn_act": 2 * TYPING_LAUNCHES * PAR_DEVICES}
         check(launches_a == want_a, f"sharded encoders and graph launched "
               f"{launches_a}, want {want_a}")
         check(int(np.asarray(het.node_mask).sum()) == patches,
@@ -3665,6 +3825,7 @@ def main() -> int:
     results["dense_layer_fused"] = dense_phase(torch, dn, dev, gen_dev, card)
     results["transition_fused"] = transition_phase(torch, dn, dev, gen_dev,
                                                    card)
+    results["bn_act"] = bn_act_phase(torch, dev, card)
     for name, r in results.items():
         log(f"timing {name}: {r['ms']:.4g} ms/launch (bound {r['bound_ms']:.4g}"
             f" ms by {r['bound_by']}; plain {r['plain_ms']:.4g} ms; "

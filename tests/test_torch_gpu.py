@@ -922,6 +922,117 @@ def test_hover_encoder_chunk_on_card_matches_cpu(cuda):
     assert _rel_l2(torch.from_numpy(f_bf16), f_cpu) <= 0.1
 
 
+# bn_act against the plain ops on the card: bit for bit against torch's
+# own BatchNorm kernel (bf16 maps always take it; f32 maps with cuDNN
+# off); torch gives f32 maps to cuDNN when it is on, whose BatchNorm
+# rounds the same formula its own way (2.4e-7 at most on these maps)
+BN_ACT_CUDNN_F32 = dict(rtol=1e-6, atol=1e-6)
+
+
+def _hover_typing_card(cuda, dtype, seed=3):
+    """The typing net seeded with jittered running stats, on the card in
+    `dtype`, channels-last (as featurizers._card_dtype places it)."""
+    from test_torch_bn_act import _seeded_typing
+
+    return _seeded_typing(seed).to(cuda, dtype,
+                                   memory_format=torch.channels_last)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_bn_act_equals_plain_at_every_typing_shape(cuda, dtype):
+    """Every BNRelu call of a typing forward (C = 64 .. 2048 and the dense
+    blocks' concat widths 128 + 32i and 256 + 32i, H = 256 down to 46; the
+    three forms) against bn_relu_reference on the same card operands:
+    sums and outputs bit for bit against torch's own BatchNorm kernel, and
+    f32 within BN_ACT_CUDNN_F32 of cuDNN's. 76 launches a forward."""
+    from wsi_hgnn_tpu_torch.kernels import hovernet as kh
+    from wsi_hgnn_tpu_torch.models.featurizers import hovernet as thv
+
+    model = _hover_typing_card(cuda, dtype)
+    seen = set()
+
+    def compare(mod, args, kwargs, out):
+        x, residual = args[0], (args[1] if len(args) > 1 else None)
+        keep = kwargs.get("keep_sum", False)
+        with torch.backends.cudnn.flags(enabled=False):
+            want = kh.bn_relu_reference(x, mod.bn, residual, keep)
+        cudnn = kh.bn_relu_reference(x, mod.bn, residual, keep)
+        if keep:
+            assert torch.equal(out[0], want[0])
+            out, want, cudnn = out[1], want[1], cudnn[1]
+        assert out.dtype == dtype and out.is_contiguous(
+            memory_format=torch.channels_last)
+        where = f"{tuple(x.shape)} residual={residual is not None}"
+        assert torch.equal(out, want), where
+        if dtype == torch.float32:
+            torch.testing.assert_close(out, cudnn, **BN_ACT_CUDNN_F32,
+                                       msg=where)
+        seen.add((x.shape[1], x.shape[2], residual is not None, keep))
+
+    for m in model.modules():
+        if isinstance(m, thv.BNRelu):
+            m.register_forward_hook(compare, with_kwargs=True)
+    x = torch.rand(2, 256, 256, 3, generator=torch.Generator().manual_seed(4))
+    before = kernels.launch_counts()["bn_act"]
+    with torch.inference_mode():
+        thv.hovernet_typing_apply(model, x.to(cuda, dtype))
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["bn_act"] - before == 76
+    chans = {c for c, *_ in seen}
+    assert {64, 128, 256, 512, 1024, 2048} <= chans
+    assert {128 + 32 * i for i in range(5)} | {256 + 32 * i
+                                               for i in range(9)} <= chans
+    assert {h for _, h, *_ in seen} >= {256, 128, 64, 32, 164, 46}
+    assert {(r, k) for *_, r, k in seen} == {(False, False), (True, True),
+                                             (True, False)}
+
+
+def test_fused_typing_net_matches_the_unfused_on_pool_patches(cuda,
+                                                              monkeypatch):
+    """The typing net as served (bn_act, pads in the convolutions) against
+    the unfused net (bn_relu_reference, tf_same_pad copies) on 32 of the
+    benchmark's structured pool patches with its calibrated seeded
+    weights, bf16 on the card: the same node types; tp logits within the
+    bf16 tolerance (cuDNN may take another algorithm for a convolution
+    that pads itself); 76 launches a forward (the unfused net none)."""
+    from test_torch_bn_act import _tf_same_pad_route
+    from wsi_hgnn_tpu_torch.kernels import hovernet as kh
+    from wsi_hgnn_tpu_torch.models.featurizers import _norm_pixels
+    from wsi_hgnn_tpu_torch.models.featurizers import hovernet as thv
+
+    monkeypatch.syspath_prepend(str(ROOT / "benchmark"))
+    import models as bench_models
+    from reference import weights as W
+    from run import load_cell
+
+    _, cfg = load_cell("heat4-serve-pixels")
+    pool = bench_models.patch_pool(48, 256, 11, cuda)
+    _, hover = bench_models.cnn_weights(cfg, 12, cuda, pool[32:])
+    model = convert.load_flax_variables(
+        thv.HoVerNet.typing(6, "fast"), W.to_numpy(hover)).eval().to(
+        cuda, torch.bfloat16, memory_format=torch.channels_last)
+    route = _tf_same_pad_route(model)
+    x = _norm_pixels(torch.from_numpy(pool[:32]).to(cuda)).to(torch.bfloat16)
+    xt = thv._nchw(thv._constructor_orientation(x))
+
+    def tp_of(m):
+        return m.decode_branch("tp", m.encode(xt)).permute(0, 2, 3, 1)
+
+    before = kernels.launch_counts()["bn_act"]
+    with torch.inference_mode():
+        got = tp_of(model)
+        assert kernels.launch_counts()["bn_act"] - before == 76
+        monkeypatch.setattr(thv, "bn_act", kh.bn_relu_reference)
+        want = tp_of(route)
+    assert kernels.launch_counts()["bn_act"] - before == 76
+    types_got = thv.node_types_on_device(got)
+    assert torch.equal(types_got, thv.node_types_on_device(want))
+    assert len(set(types_got.tolist())) > 1     # the votes are not all one
+    torch.testing.assert_close(got.float(), want.float(),
+                               **TOL[torch.bfloat16])
+
+
 def test_efficientnet_chunk_on_card_matches_cpu(cuda):
     """An EfficientNet-B4 chunk in f32 on the card against the CPU to 1e-4
     relative L2; the production 'efficientnet-b4' encoder (bf16, typing
@@ -1197,7 +1308,8 @@ def test_fused_kimianet_f32_at_simclr_batch_matches_module(cuda):
         want, _ = model(x)
     assert kernels.launch_counts() == {"knn_l2_fused": 0,
                                        "dense_layer_fused": 58,
-                                       "transition_fused": 3}
+                                       "transition_fused": 3,
+                                       "bn_act": 0}
     torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-4)
 
 

@@ -1,6 +1,6 @@
-"""Every ctypes launch of the DenseNet kernels runs with the operands'
-card as the CUDA runtime's current device
-(wsi_hgnn_tpu_torch/kernels/densenet.py), as the KNN's does: the C
+"""Every ctypes launch of the DenseNet kernels and of bn_act runs with the
+operands' card as the CUDA runtime's current device
+(wsi_hgnn_tpu_torch/kernels/densenet.py, hovernet.py), as the KNN's does: the C
 entries set their attributes and launch on the current device, so on a
 host of several cards a launch for operands on cuda:1 while cuda:0 is
 current would go to the wrong card. No card here: the operands are meta
@@ -70,4 +70,21 @@ def test_transition_launches_on_the_operands_card(fake_cuda):
                         torch.empty(1, 256, **f32),
                         torch.empty(256, 128, dtype=torch.bfloat16, **meta))
     assert launches == [("transition", "meta")]
+    assert current == ["cuda:0"]
+
+
+def test_bn_act_launches_on_the_operands_card(fake_cuda, monkeypatch):
+    from wsi_hgnn_tpu_torch.kernels import hovernet as kh
+
+    launches, current = fake_cuda
+    monkeypatch.setattr(kh, "_kernel",
+                        lambda suffix: lambda *args: launches.append(
+                            ("bn_act", current[-1])) or 0)
+    x = torch.empty(2, 64, 8, 8, dtype=torch.bfloat16, device="meta"
+                    ).contiguous(memory_format=torch.channels_last)
+    bn = torch.nn.BatchNorm2d(64).to(device="meta",
+                                     dtype=torch.bfloat16).eval()
+    with torch.inference_mode():
+        kh.bn_act(x, bn, x, keep_sum=True)
+    assert launches == [("bn_act", "meta")]
     assert current == ["cuda:0"]

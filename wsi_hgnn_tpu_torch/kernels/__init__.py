@@ -7,9 +7,10 @@ from __future__ import annotations
 from typing import Dict
 
 from .densenet import dense_layer_fused, transition_fused
+from .hovernet import bn_act
 from .knn import knn_l2_fused
 
-WRAPPERS = (knn_l2_fused, dense_layer_fused, transition_fused)
+WRAPPERS = (knn_l2_fused, dense_layer_fused, transition_fused, bn_act)
 
 
 def launch_counts() -> Dict[str, int]:

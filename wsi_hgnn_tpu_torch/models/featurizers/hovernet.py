@@ -8,6 +8,13 @@ package's do.
 Two uses: nucleus typing (encoder + tp branch + a per-patch majority vote,
 `HoVerNet.typing` builds the net without np/hv and fc1) and the 'hover'
 encoder (`hovernet_full_apply`: typing plus the fc1 features).
+
+Every BatchNorm + ReLU is one pass (`kernels.bn_act`: the hand-written
+kernel on the card, the plain ops on the CPU), and each residual sum is
+made in the pass of the BatchNorm that reads it. Where TF 'same' padding
+is symmetric (every stride-1 convolution: (k-1)/2 on each side whatever
+the size) the convolution pads itself and no padded copy is made; only
+the three stride-2 units pad with `tf_same_pad`.
 """
 from __future__ import annotations
 
@@ -18,6 +25,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ...kernels.hovernet import bn_act
 
 
 def tf_same_pad(x: torch.Tensor, ksize: int, stride: int) -> torch.Tensor:
@@ -45,18 +54,29 @@ def crop_to_shape(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return crop_op(x, (x.shape[2] - y.shape[2], x.shape[3] - y.shape[3]))
 
 
-def _conv(cin, cout, k, stride=1, groups=1, bias=False):
-    return nn.Conv2d(cin, cout, k, stride=stride, padding=0, groups=groups,
-                     bias=bias)
+def _conv(cin, cout, k, stride=1, groups=1, bias=False, padding=0):
+    return nn.Conv2d(cin, cout, k, stride=stride, padding=padding,
+                     groups=groups, bias=bias)
+
+
+def _same_conv(cin, cout, k, stride):
+    """A k x k convolution with TF 'same' padding: at stride 1 the pad is
+    (k-1)/2 on both sides, the convolution's own; at stride 2 the caller
+    pads with tf_same_pad."""
+    return _conv(cin, cout, k, stride, padding=(k - 1) // 2 if stride == 1
+                 else 0)
 
 
 class BNRelu(nn.Module):
+    """relu(bn(x)); with `residual`, relu(bn(x + residual)), and the sum
+    too when keep_sum ((s, y)): one pass either way (kernels.bn_act)."""
+
     def __init__(self, ch: int):
         super().__init__()
         self.bn = nn.BatchNorm2d(ch, eps=1e-5)
 
-    def forward(self, x):
-        return F.relu(self.bn(x))
+    def forward(self, x, residual=None, keep_sum: bool = False):
+        return bn_act(x, self.bn, residual, keep_sum)
 
 
 class ResidualBlock(nn.Module):
@@ -76,23 +96,23 @@ class ResidualBlock(nn.Module):
             self.add_module(f"u{idx}_conv1", _conv(cin, c1, 1))
             self.add_module(f"u{idx}_bn1", BNRelu(c1))
             self.add_module(f"u{idx}_conv2",
-                            _conv(c1, c2, 3, stride if idx == 0 else 1))
+                            _same_conv(c1, c2, 3, stride if idx == 0 else 1))
             self.add_module(f"u{idx}_bn2", BNRelu(c2))
             self.add_module(f"u{idx}_conv3", _conv(c2, c3, 1))
         self.blk_bna = BNRelu(c3)
 
     def forward(self, x):
         shortcut = x if self.shortcut is None else self.shortcut(x)
-        prev = x
+        h = x
         for idx in range(self.unit_count):
             u = lambda name: getattr(self, f"u{idx}_{name}")  # noqa: E731
-            h = prev if idx == 0 else u("preact")(prev)
+            if idx:   # the unit's input, the next shortcut, and its preact
+                shortcut, h = u("preact")(h, shortcut, keep_sum=True)
             h = u("bn1")(u("conv1")(h))
-            h = tf_same_pad(h, 3, self.stride if idx == 0 else 1)
+            if idx == 0 and self.stride != 1:
+                h = tf_same_pad(h, 3, self.stride)
             h = u("conv3")(u("bn2")(u("conv2")(h)))
-            prev = h + shortcut
-            shortcut = prev
-        return self.blk_bna(prev)
+        return self.blk_bna(h, shortcut)
 
 
 class DenseBlock(nn.Module):
@@ -132,14 +152,13 @@ class DecoderBranch(nn.Module):
     def __init__(self, out_ch: int, ksize: int):
         super().__init__()
         k = ksize
-        self.ksize = k
         self.u3_conva = _conv(1024, 256, k)
         self.u3_dense = DenseBlock(256, (128, 32), k, 8)
         self.u3_convf = _conv(512, 512, 1)
         self.u2_conva = _conv(512, 128, k)
         self.u2_dense = DenseBlock(128, (128, 32), k, 4)
         self.u2_convf = _conv(256, 256, 1)
-        self.u1_conva = _conv(256, 64, k)
+        self.u1_conva = _same_conv(256, 64, k, 1)
         self.u0_bn = BNRelu(64)
         self.u0_conv = _conv(64, out_ch, 1, bias=True)
 
@@ -147,8 +166,8 @@ class DecoderBranch(nn.Module):
         d0, d1, d2, d3 = d
         u3 = self.u3_convf(self.u3_dense(self.u3_conva(_upsample2x(d3) + d2)))
         u2 = self.u2_convf(self.u2_dense(self.u2_conva(_upsample2x(u3) + d1)))
-        u1 = tf_same_pad(_upsample2x(u2) + d0, self.ksize, 1)
-        return self.u0_conv(self.u0_bn(self.u1_conva(u1)))
+        u1 = self.u1_conva(_upsample2x(u2) + d0)
+        return self.u0_conv(self.u0_bn(u1))
 
 
 class ChunkedDense(nn.Module):
@@ -196,7 +215,8 @@ class HoVerNet(nn.Module):
             raise ValueError(f"unknown HoVer-Net mode {mode!r}")
         self.nr_types, self.mode = nr_types, mode
         self.branches = tuple(branches)
-        self.conv0 = _conv(3, 64, 7)
+        # 'fast' pads the 256 px input TF-same (3 a side), 'original' not
+        self.conv0 = _conv(3, 64, 7, padding=3 if mode == "fast" else 0)
         self.bn0 = BNRelu(64)
         self.d0 = ResidualBlock(64, (64, 64, 256), 3, stride=1)
         self.d1 = ResidualBlock(256, (128, 128, 512), 4, stride=2)
@@ -216,8 +236,7 @@ class HoVerNet(nn.Module):
 
     def encode(self, imgs):
         """NCHW pixels -> the cropped skips (d0, d1, d2, d3)."""
-        x = tf_same_pad(imgs, 7, 1) if self.mode == "fast" else imgs
-        x = self.bn0(self.conv0(x))
+        x = self.bn0(self.conv0(imgs))
         d0 = self.d0(x)
         d1 = self.d1(d0)
         d2 = self.d2(d1)
