@@ -1065,6 +1065,74 @@ def test_efficientnet_chunk_on_card_matches_cpu(cuda):
     assert ((types >= 0) & (types < 6)).all()
 
 
+def test_uni2h_chunk_on_card_matches_the_f32_reference(cuda, monkeypatch):
+    """The 'uni2-h' encoder as served (bf16, the 24 blocks at the model
+    card's widths) on 16 of the benchmark's structured pool patches with
+    its seeded weights, against the plain f32 reference
+    (benchmark/reference/vit.py): every row within the cell's
+    `feat_rel_l2` limit, no node types, and the attention on the card's
+    flash kernel (the profiler's device events name it)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from wsi_hgnn_tpu_torch.models.featurizers import make_cnn_encoder
+
+    monkeypatch.syspath_prepend(str(ROOT / "benchmark"))
+    import models as bench_models
+    from reference import vit as ref_vit
+    from run import load_cell
+
+    workload, cfg = load_cell("uni2h-serve-pixels")
+    arch = ref_vit.arch_of(cfg)
+    w = ref_vit.make_weights(ref_vit.spec(arch), 21, cuda)
+    pool = bench_models.patch_pool(16, 256, 22, cuda)
+    enc = make_cnn_encoder("uni2-h", {"feature_dim": 1536}, {}, {},
+                           pad_batch_to=16, device=cuda, vit_state_dict=w)
+    enc(pool)   # the first call picks cuBLAS's and the attention's kernels
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        got, types = enc(pool)
+    kernels_run = {e.name for e in prof.events()
+                   if e.device_type == DeviceType.CUDA}
+    assert any("flash" in k.lower() for k in kernels_run), sorted(kernels_run)
+    assert types is None and got.shape == (16, 1536)
+    want = ref_vit.features(w, torch.from_numpy(pool).to(cuda), arch)
+    rel = ((torch.from_numpy(got).to(cuda) - want).norm(dim=1)
+           / want.norm(dim=1))
+    print(f"uni2-h bf16 against f32: relative L2 {rel.min():.4g} - "
+          f"{rel.max():.4g}")
+    assert float(rel.max()) <= workload["limits"]["feat_rel_l2"]
+
+
+def test_chunks_launched_ahead_equal_chunks_run_one_at_a_time(cuda,
+                                                              monkeypatch):
+    """KimiaNet with HoVer-Net typing (the heat4 pixel path) on three
+    chunks of pool patches: each chunk launched before the last is
+    finished, as serve.featurize runs them, gives the features and types
+    of the chunks run one at a time, bit for bit (the pinned upload and
+    download buffers of neighbouring chunks do not mix)."""
+    from wsi_hgnn_tpu_torch.models.featurizers import make_cnn_encoder
+
+    monkeypatch.syspath_prepend(str(ROOT / "benchmark"))
+    import models as bench_models
+
+    pool = bench_models.patch_pool(24, 256, 5, cuda)
+    enc = make_cnn_encoder("kimia", {"feature_dim": 1024, "n_node_type": 6},
+                           {}, {}, with_typing=True, pad_batch_to=8,
+                           device=cuda)
+    chunks = [pool[i:i + 8] for i in (0, 8, 16)]
+    want = [enc(c) for c in chunks]
+    got, pending = [], enc.launch(chunks[0])
+    for c in chunks[1:]:
+        launched = enc.launch(c)
+        got.append(enc.finish(pending))
+        pending = launched
+    got.append(enc.finish(pending))
+    for (f, t), (wf, wt) in zip(got, want):
+        np.testing.assert_array_equal(f, wf)
+        np.testing.assert_array_equal(t, wt)
+
+
 def test_native_packer_builds_and_matches_numpy_on_card_machine(cuda):
     """The native packer built by this machine's g++: batches and edge
     sorts equal the numpy path bit for bit, and the batch moves to the

@@ -1,17 +1,20 @@
 """CNN featurizers and the patch encoders (counterpart of
 wsi_hgnn_tpu/models/featurizers/__init__.py), as the reference graph
 constructor runs them over one patch stream: 'kimia' (KimiaNet features),
-'efficientnet-b4' (EfficientNet-B4 features), each with HoVer-Net nucleus
-typing inline, and 'hover' (HoVer-Net's fc1 features and its own types).
+'efficientnet-b4' (EfficientNet-B4 features) and 'uni2-h' (the UNI2-h
+ViT's CLS features, vit.py), each with HoVer-Net nucleus typing inline
+when asked, and 'hover' (HoVer-Net's fc1 features and its own types).
 
 Weights, per CNN: flax-layout variables when the caller passes them;
 else the reference's torch checkpoint named by `kimianet_model_path` /
 `hovernet_model_path` / `efficientnet_model_path` when that file exists
 (`convert.py` maps its keys, strict=False over the seeded init); else the
 seeded init with flax's distributions, as the JAX package falls back to
-its random init. One line per CNN says which weights ran. HoVer-Net's fc1
-kernel (4.3 GB in f32 at 1024 features) is seeded on the encoder's own
-device when no file holds it, never on the host.
+its random init. UNI2-h takes a timm state dict (`vit_state_dict`, or
+the file at `uni2h_model_path`), else timm's seeded init. One line per
+network says which weights ran. HoVer-Net's fc1 kernel (4.3 GB in f32 at
+1024 features) is seeded on the encoder's own device when no file holds
+it, never on the host.
 """
 from __future__ import annotations
 
@@ -29,9 +32,11 @@ from .efficientnet import EfficientNet, efficientnet_apply
 from .effnetv2 import EffNetV2
 from .hovernet import (HoVerNet, hovernet_full_apply, hovernet_typing_apply,
                        node_types_from_tp, node_types_on_device)
+from .vit import ViT, make_vit, vit_apply
 
 __all__ = ["DenseNet121", "KimiaNet", "EfficientNet", "EffNetV2", "HoVerNet",
-           "convert", "fuse_kimianet", "kimianet_fused_apply",
+           "ViT", "make_vit", "vit_apply", "convert", "fuse_kimianet",
+           "kimianet_fused_apply",
            "efficientnet_apply", "hovernet_typing_apply",
            "hovernet_full_apply", "node_types_from_tp",
            "node_types_on_device", "make_cnn_encoder", "make_hover_typing",
@@ -61,14 +66,16 @@ def _make_encode(build: Callable, devices, pad_batch_to: Optional[int]):
     `_pad_rows`), run it split over the devices (`build(device)` is one
     device's function of normalised pixels; parallel.mesh.
     make_sharded_batch_apply), slice the pad off, return (features f32,
-    node_types | None). uint8 chunks cross to the devices unconverted."""
+    node_types | None). uint8 chunks cross to the devices unconverted.
+    `encode` is `encode.finish(encode.launch(patches))`; serve.featurize
+    launches a chunk before it finishes the one before."""
     from ...parallel.mesh import make_sharded_batch_apply
 
     devices = tuple(devices)
     run = make_sharded_batch_apply(
         lambda d: (lambda p, f=build(d): f(_norm_pixels(p))), devices)
 
-    def encode(patches: np.ndarray):
+    def launch(patches: np.ndarray):
         arr = np.asarray(patches)
         if arr.dtype != np.uint8:
             arr = np.asarray(arr, np.float32)
@@ -77,11 +84,19 @@ def _make_encode(build: Callable, devices, pad_batch_to: Optional[int]):
             arr = _pad_rows(arr, pad_batch_to)
         arr = _pad_rows(arr, len(devices))
         with torch.inference_mode():
-            out = run(torch.from_numpy(np.ascontiguousarray(arr)))
+            return b, run.launch(torch.from_numpy(np.ascontiguousarray(arr)))
+
+    def finish(launched):
+        b, pending = launched
+        out = run.finish(pending)
         feats, types = out if isinstance(out, tuple) else (out, None)
         feats = feats[:b].float().numpy()
         return feats, (None if types is None else types[:b].numpy())
 
+    def encode(patches: np.ndarray):
+        return finish(launch(patches))
+
+    encode.launch, encode.finish = launch, finish
     # serve.featurize keeps patch batches uint8 end to end when it sees this
     encode.accepts_uint8 = True
     encode.devices = devices
@@ -245,23 +260,27 @@ def make_cnn_encoder(name: str, config: Dict, hovernet_config: Dict,
                      kimia_variables: Optional[Dict] = None,
                      hover_variables: Optional[Dict] = None,
                      efficientnet_variables: Optional[Dict] = None,
-                     seed: int = 0, devices=None):
+                     seed: int = 0, devices=None,
+                     vit_state_dict: Optional[Dict] = None):
     """`(patches [B, 256, 256, 3] uint8 or f32) -> (features [B, D] f32,
     node_types [B] int32 | None)`.
 
     'kimia' runs the fused KimiaNet (the hand-written dense-layer and
     transition kernels), 'efficientnet-b4' EfficientNet-B4 with its
-    feature_dim-way fc; with_typing adds HoVer-Net typing on the same
-    uploaded chunk. 'hover' runs HoVer-Net once for both: fc1 features
-    (feature_dim wide) and types. bf16 storage on the card, f32 on the
-    CPU. Any other name raises NotImplementedError (the JAX package builds
-    no 'efficientnet-b7' either). Weights as the module docstring says.
+    feature_dim-way fc, 'uni2-h' the UNI2-h ViT (vit.py: the tiles
+    resized to 224 and normalised on the device; feature_dim must be its
+    width, 1536; `config['vit']` may set other sizes); with_typing adds
+    HoVer-Net typing on the same uploaded chunk. 'hover' runs HoVer-Net
+    once for both: fc1 features (feature_dim wide) and types. bf16
+    storage on the card, f32 on the CPU. Any other name raises
+    NotImplementedError (the JAX package builds no 'efficientnet-b7'
+    either). Weights as the module docstring says.
 
     `devices` (a sequence, or a parallel.Mesh) shards every chunk over
     several devices, one replica of each CNN per distinct device (the
     JAX package's `mesh`; the reference's DataParallel); by default the
     one `device`. The encoder carries the first device's functions as
-    `encode.stages` ('kimianet' / 'efficientnet' / 'hovernet'), for
+    `encode.stages` ('kimianet' / 'efficientnet' / 'vit' / 'hovernet'), for
     per-stage timing; while a profiler runs each stage call is a device
     span `encode/<stage>` (profiling.span)."""
     if devices is None:
@@ -274,7 +293,7 @@ def make_cnn_encoder(name: str, config: Dict, hovernet_config: Dict,
         set_cuda_numerics()
     nr_types = int(config.get("n_node_type", 6))
     feat_dim = int(config.get("feature_dim", 1024))
-    if name not in ("hover", "kimia", "efficientnet-b4"):
+    if name not in ("hover", "kimia", "efficientnet-b4", "uni2-h"):
         raise NotImplementedError(f"encoder {name!r}")
     if name == "kimia" and kimia_variables is None:
         kimia_variables = load_cnn_variables(
@@ -304,6 +323,20 @@ def make_cnn_encoder(name: str, config: Dict, hovernet_config: Dict,
                     return kimianet_fused_apply(fp, imgs.to(dtype))[0]
 
             stage = "kimianet"
+        elif name == "uni2-h":
+            vit = make_vit(dev, dtype, vit_state_dict,
+                           config.get("uni2h_model_path"), seed + 3,
+                           **config.get("vit", {}))
+            width = vit.norm.normalized_shape[0]
+            if width != feat_dim:
+                raise ValueError(f"uni2-h gives {width} features a patch; "
+                                 f"feature_dim is {feat_dim}")
+
+            def feat_part(imgs):
+                with span("encode/vit", device=dev):
+                    return vit_apply(vit, imgs)
+
+            stage = "vit"
         else:
             model = _efficientnet(name, config, feat_dim, dev,
                                   efficientnet_variables, seed)

@@ -119,6 +119,17 @@ def _join(parts):
     return torch.cat([p.cpu() for p in parts])
 
 
+def _to_host_async(x):
+    """A device tensor (or a tuple of them) queued for a copy into pinned
+    host memory behind the work that makes it; host tensors as they are."""
+    if isinstance(x, (tuple, list)):
+        return type(x)(_to_host_async(v) for v in x)
+    if x.device.type != "cuda":
+        return x
+    host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+    return host.copy_(x, non_blocking=True)
+
+
 def make_sharded_batch_apply(fn: Callable, devices) -> Callable:
     """`fn(device)` builds the program of one device (its weights placed
     there): a callable from a batch part on that device to a tensor or a
@@ -126,16 +137,22 @@ def make_sharded_batch_apply(fn: Callable, devices) -> Callable:
     `apply(batch)`: the batch (host or any device) split into
     len(devices) equal contiguous parts (the caller pads: the batch must
     divide), each run on its device, the results joined in order on the
-    host. One replica per distinct device; no collective. While a
-    profiler runs, the copies to the devices are an `encode/upload` span
-    and the join on the host an `encode/download` span."""
+    host. One replica per distinct device; no collective.
+
+    `apply` is `apply.finish(apply.launch(batch))`: `launch` uploads the
+    parts, queues every device's work and the copies of its results to
+    pinned host memory, and returns without waiting; `finish` waits for
+    those copies and joins them. A caller may launch the next batch
+    before it finishes this one, so the host's upload work overlaps the
+    devices'. While a profiler runs, the copies to the devices are an
+    `encode/upload` span and the wait and join an `encode/download` span."""
     devs = _device_list(devices)
     replicas = {}
     for d in devs:
         if d not in replicas:
             replicas[d] = fn(d)
 
-    def apply(batch: torch.Tensor):
+    def launch(batch: torch.Tensor):
         b, n = batch.shape[0], len(devs)
         if b % n:
             raise ValueError(f"batch of {b} does not divide over {n} "
@@ -148,10 +165,26 @@ def make_sharded_batch_apply(fn: Callable, devices) -> Callable:
             parts = [batch[i * per:(i + 1) * per].to(d, non_blocking=True)
                      for i, d in enumerate(devs)]
         # launch every part before reading any result back
-        outs = [replicas[d](part) for part, d in zip(parts, devs)]
+        outs = [_to_host_async(replicas[d](part))
+                for part, d in zip(parts, devs)]
+        done = []
+        for d in dict.fromkeys(devs):
+            if d.type == "cuda":
+                done.append(torch.cuda.Event())
+                done[-1].record(torch.cuda.current_stream(d))
+        return outs, done
+
+    def finish(launched):
+        outs, done = launched
         with span("encode/download"):
+            for event in done:
+                event.synchronize()
             return _join(outs)
 
+    def apply(batch: torch.Tensor):
+        return finish(launch(batch))
+
+    apply.launch, apply.finish = launch, finish
     apply.devices = devs
     return apply
 

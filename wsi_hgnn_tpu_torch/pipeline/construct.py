@@ -10,9 +10,9 @@ homogeneous/<slide>.npz and node_types/<slide>.npy.
 
 Encoders are callables `(patches [B, 256, 256, 3] f32 in [0, 1], or raw
 uint8 when the encoder sets .accepts_uint8) -> (features [B, D],
-node_types [B] | None)`: 'kimia' and 'efficientnet-b4' (with inline
-HoVer-Net typing) and 'hover' (HoVer-Net fc1 features and types), all
-models.featurizers.make_cnn_encoder; 'random' (tests); 'precomputed'
+node_types [B] | None)`: 'kimia', 'efficientnet-b4' and 'uni2-h' (with
+inline HoVer-Net typing) and 'hover' (HoVer-Net fc1 features and types),
+all models.featurizers.make_cnn_encoder; 'random' (tests); 'precomputed'
 (<slide>.features.npz on disk). One encoder serves a whole run.
 """
 from __future__ import annotations
@@ -68,7 +68,7 @@ def encoder_mesh(config: Dict, device: torch.device):
     return tuple(torch.device("cuda", i) for i in range(n))
 
 
-CNN_ENCODERS = ("kimia", "efficientnet-b4", "hover")
+CNN_ENCODERS = ("kimia", "efficientnet-b4", "uni2-h", "hover")
 
 
 def check_encoder(config: Dict) -> None:
@@ -86,10 +86,11 @@ def make_encoder(name: str, config: Dict, hovernet_config: Dict,
                  pad_batch_to: Optional[int] = None,
                  device=None, devices=None) -> EncoderFn:
     """The encoder registry of the reference constructor's dispatch on
-    `encoder_name`: 'random', or a CNN encoder ('kimia',
-    'efficientnet-b4', 'hover'; with_typing adds HoVer-Net typing over
-    the same patch chunk to the first two). pad_batch_to pads every chunk
-    to one batch size; `devices` shards each chunk over several cards."""
+    `encoder_name`: 'random', or a patch encoder ('kimia',
+    'efficientnet-b4', 'uni2-h', 'hover'; with_typing adds HoVer-Net
+    typing over the same patch chunk to the first three). pad_batch_to
+    pads every chunk to one batch size; `devices` shards each chunk over
+    several cards."""
     if name == "random":
         return random_encoder(config.get("feature_dim", 1024),
                               n_types=config.get("n_node_type", 6))
@@ -108,13 +109,13 @@ def build_default_encoder(config: Dict, hovernet_config: Dict,
                           device=None) -> Optional[EncoderFn]:
     """The encoder a GraphConstructor builds for this config, made once per
     run ('precomputed' needs none). HoVer-Net typing runs inline beside
-    KimiaNet or EfficientNet whenever no node_type_dir is given, as in the
-    reference constructor; `inline_typing: false` opts out ('hover' types
-    the patches itself). Chunks are padded to the hovernet batch_size."""
+    KimiaNet, EfficientNet or UNI2-h whenever no node_type_dir is given,
+    as in the reference constructor; `inline_typing: false` opts out
+    ('hover' types the patches itself). Chunks are padded to the hovernet batch_size."""
     enc_name = config["encoder_name"]
     if enc_name == "precomputed":
         return None
-    want_typing = (enc_name in ("kimia", "efficientnet-b4")
+    want_typing = (enc_name in ("kimia", "efficientnet-b4", "uni2-h")
                    and config.get("node_type_dir") is None
                    and bool(config.get("inline_typing", True)))
     check_encoder(config)

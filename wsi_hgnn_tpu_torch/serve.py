@@ -2,8 +2,9 @@
 `SlidePredictor` and the micro-batching HTTP server `BatchingServer`.
 
 A request carries patch features [N, D] (+ node types), or raw patch
-pixels once `enable_pixels` attached the two-CNN encoder (KimiaNet
-features + HoVer-Net typing over one patch stream). Slides of a group are
+pixels once `enable_pixels` attached a patch encoder (KimiaNet,
+EfficientNet-B4 or UNI2-h features, with HoVer-Net typing over the same
+patch stream for a heterogeneous model). Slides of a group are
 padded to one size bucket and their graphs built on the device (KNN +
 Pearson, one KNN launch per slide). Two paths answer, chosen as the JAX
 predictor chooses:
@@ -122,11 +123,16 @@ class SlidePredictor:
                       encoder_name: str = "kimia",
                       kimia_variables: Optional[Dict] = None,
                       hover_variables: Optional[Dict] = None,
-                      seed: int = 0) -> None:
-        """Attach a patch-pixel featurizer: by default the fused two-CNN
-        encoder at the constructor's chunk size (hovernet_config
-        batch_size, default 128). `encoder` injects a custom
-        `(patches) -> (features, node_types)` callable."""
+                      seed: int = 0, encoder_config: Optional[Dict] = None,
+                      vit_state_dict: Optional[Dict] = None) -> None:
+        """Attach a patch-pixel featurizer: by default the caller's
+        `encoder_name` (models.featurizers.make_cnn_encoder: 'kimia',
+        'efficientnet-b4', 'uni2-h' or 'hover'; `encoder_config` adds to
+        its config, e.g. `uni2h_model_path`) at the constructor's chunk
+        size (hovernet_config batch_size, default 128), with HoVer-Net
+        typing inline for a heterogeneous model only: a homogeneous one
+        reads no types, and `featurize` gives it zeros. `encoder` injects
+        a custom `(patches) -> (features, node_types)` callable."""
         hovernet_config = dict(hovernet_config or {})
         if chunk is None:
             chunk = int(hovernet_config.get("batch_size", 128) or 128)
@@ -135,11 +141,13 @@ class SlidePredictor:
 
             encoder = make_cnn_encoder(
                 encoder_name,
-                {"feature_dim": self.in_dim, "n_node_type": self.n_node_types},
+                {"feature_dim": self.in_dim, "n_node_type": self.n_node_types,
+                 **(encoder_config or {})},
                 hovernet_config, dict(kimianet_config or {}),
-                with_typing=True, pad_batch_to=chunk, device=self.device,
-                kimia_variables=kimia_variables,
-                hover_variables=hover_variables, seed=seed)
+                with_typing=self.is_hetero, pad_batch_to=chunk,
+                device=self.device, kimia_variables=kimia_variables,
+                hover_variables=hover_variables, seed=seed,
+                vit_state_dict=vit_state_dict)
         self._encoder = encoder
         self._patch_size = int(patch_size)
         self._chunk = int(chunk)
@@ -150,11 +158,14 @@ class SlidePredictor:
 
     def featurize(self, pixels: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
         """Patch pixels [N, P, P, 3] (uint8, or f32 in [0, 1]) -> (features
-        [N, D] f32, node_types [N] int32), chunk by chunk. While a
-        profiler runs each chunk is a `featurize/chunk` span, and the
-        card's time from the end of a chunk's last device span (the
-        encoder's CNN stages) to the start of the next chunk's first is
-        added to the counter `featurize/chunk_gap_ns`."""
+        [N, D] f32, node_types [N] int32), chunk by chunk. Where the
+        encoder has `launch` / `finish`, each chunk is launched before the
+        one before it is finished, so the host pins and uploads a chunk
+        while the card runs the last. While a profiler runs each chunk's
+        launch is a `featurize/chunk` span, and the card's time from the
+        end of a chunk's last device span (the encoder's stages) to the
+        start of the next chunk's first is added to the counter
+        `featurize/chunk_gap_ns`."""
         if not self.pixels_enabled:
             raise RuntimeError("pixels not enabled: call enable_pixels()")
         px = np.asarray(pixels)
@@ -163,22 +174,35 @@ class SlidePredictor:
                 px = px.astype(np.float32) / 255.0
         else:
             px = px.astype(np.float32)
+        launch = getattr(self._encoder, "launch", None)
+        finish = getattr(self._encoder, "finish", None)
+        if launch is None:
+            launch, finish = self._encoder, (lambda out: out)
         feats, types = [], []
+
+        def take(out):
+            f, t = out
+            feats.append(np.asarray(f, np.float32))
+            types.append(np.zeros(len(f), np.int32) if t is None
+                         else np.asarray(t, np.int32))
+
         with self._lock:
             t0 = time.perf_counter()
-            last = None
+            last = pending = None
             for i in range(0, len(px), self._chunk):
                 with profiling.span("featurize/chunk",
                                     step=i // self._chunk) as chunk:
-                    f, t = self._encoder(px[i:i + self._chunk])
-                    feats.append(np.asarray(f, np.float32))
-                    types.append(np.zeros(len(f), np.int32) if t is None
-                                  else np.asarray(t, np.int32))
+                    launched = launch(px[i:i + self._chunk])
+                if pending is not None:
+                    take(finish(pending))
+                pending = launched
                 if last is not None:
                     profiling.count_elapsed("featurize/chunk_gap_ns",
                                             last.dev_last, chunk.dev_first)
                 last = chunk
                 self.timing["featurize_chunks"] += 1
+            if pending is not None:
+                take(finish(pending))
             self.timing["featurize_ms"] += (time.perf_counter() - t0) * 1e3
         return np.concatenate(feats), np.concatenate(types)
 

@@ -10,9 +10,10 @@ Requests: POST /predict with an .npz body holding `features` [N, D] f32
 answered with JSON {"probs": [...], "pred": k, "latency_ms": t}; GET
 /healthz and GET /stats. `--pixels-config <GraphConstruction YAML>` also
 serves raw patch pixels (`pixels` [N, 256, 256, 3] uint8) through the
-two-CNN encoder, with the KimiaNet and HoVer-Net weights that YAML names
-where those files exist. Runs on the card unless `--device cpu`; without
-a card it raises.
+encoder that YAML's `encoder_name` names ('kimia' when it names none;
+HoVer-Net typing beside it for a heterogeneous model), with the weights
+it names where those files exist. Runs on the card unless `--device
+cpu`; without a card it raises.
 """
 from __future__ import annotations
 
@@ -40,9 +41,9 @@ def main(argv=None):
                         "one-hot working set; larger groups take the "
                         "TypedGraph path")
     p.add_argument("--pixels-config", default="",
-                   help="GraphConstruction YAML (hovernet_config/"
-                        "kimianet_config sections); enables POST `pixels` "
-                        "requests through the two-CNN encoder")
+                   help="GraphConstruction YAML (graph_constructor/"
+                        "hovernet_config/kimianet_config sections); enables "
+                        "POST `pixels` requests through its encoder")
     p.add_argument("--max-body-mb", type=float, default=512.0,
                    help="request body cap (a 2048-patch uint8 pixel slide "
                         "is ~402 MB)")
@@ -58,9 +59,7 @@ def main(argv=None):
         knn_impl=args.knn_impl, lattice_mem_budget=args.lattice_mem_budget,
         device=args.device)
     if args.pixels_config:
-        gcfg = load_config(args.pixels_config)
-        predictor.enable_pixels(gcfg.get("hovernet_config") or {},
-                                gcfg.get("kimianet_config") or {})
+        enable_pixels_from(predictor, load_config(args.pixels_config))
     if args.warmup:
         # before the socket is bound, so clients see a refused connection,
         # not a hung one, while the kernels build; at max_batch, the batch
@@ -78,6 +77,22 @@ def main(argv=None):
           + (", pixels enabled)" if predictor.pixels_enabled else ")"),
           flush=True)
     server.serve_forever()
+
+
+def enable_pixels_from(predictor, gcfg) -> None:
+    """Attach the encoder a GraphConstruction config names to `predictor`:
+    `graph_constructor.encoder_name` ('kimia' where it names none), with
+    its weight paths, and HoVer-Net typing beside it for a heterogeneous
+    model. An encoder the port does not build (e.g. 'efficientnet-b7')
+    raises NotImplementedError before anything is served."""
+    gc = gcfg.get("graph_constructor") or {}
+    predictor.enable_pixels(
+        gcfg.get("hovernet_config") or {},
+        gcfg.get("kimianet_config") or {},
+        encoder_name=gc.get("encoder_name") or "kimia",
+        encoder_config={k: gc[k] for k in ("efficientnet_model_path",
+                                           "uni2h_model_path")
+                        if gc.get(k)})
 
 
 if __name__ == "__main__":
