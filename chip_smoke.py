@@ -17,15 +17,25 @@
    `bn_act` bit-equal in its three forms at a chunk's d0-d3 maps), with
    the tolerance printed beside the error; then HoVer-Net typing of one
    chunk timed four ways (bn_act or the plain ops, each with the
-   convolutions padding themselves or with tf_same_pad copies).
+   convolutions padding themselves or with tf_same_pad copies); UNI2-h's
+   `swiglu` and `add_layer_norm` (stream and LayerNorm) bit-equal at a
+   256-patch chunk's rows, then a UNI2-h chunk timed with the kernels
+   and with the plain ops (features bit-equal).
 3. The slice: `SlidePredictor` at the width of
    configs/BRCA/HEAT4_kimia_classification.yml, pixels in (KimiaNet
    features + HoVer-Net typing, bf16), exact KNN + Pearson lattice,
    HEAT4, softmax; requests of 2048, 1000 and 300 patches. The kernel
-   launch counters are zeroed just before and read just after.
+   launch counters are zeroed just before and read just after. Then the
+   path of the uni2h-serve-pixels cell: the GAT of
+   configs/BRCA/GAT_kimia_classification.yml at in_dim 1536 on UNI2-h
+   (seeded, bf16) from uint8 pixels in chunks of 256, one request of
+   UNI2H_N patches with the counters zeroed just before (24 `swiglu`
+   and 49 `add_layer_norm` launches a chunk, one KNN, nothing of
+   HoVer-Net's or KimiaNet's), its features against the plain ops'.
 4. Timing lines (one line per main-path shape: each KNN size, each
    dense block, each transition, each bn_act map size over its three
-   forms, with ms/launch, bound and share of the
+   forms, swiglu and each form of add_layer_norm, with ms/launch, bound
+   and share of the
    bound; host clock per stage), and a torch.profiler pass over the last
    request: the device's busy share and the kernels that took the most
    device time. Kernel times are card-bound (`cuda_ms`): a
@@ -721,6 +731,139 @@ def bn_act_phase(torch, dev, card):
     return result
 
 
+VIT_ROWS = 256 * 265    # a 256-patch chunk's token rows (UNI2-h, 265 tokens)
+VIT_D, VIT_F = 1536, 4096     # UNI2-h's width; SwiGLU's half of fc1's 8192
+VIT_FORMS = (("update and LayerNorm", True, True),
+             ("LayerNorm alone", False, True),
+             ("update alone", True, False))   # (form, branch, norm)
+VIT_CHUNK_REPS = 3      # timed UNI2-h forwards of a chunk per variant
+VIT_CHUNK = 256         # patches a chunk (the uni2h cell's)
+
+
+def vit_phase(torch, dev, card):
+    """UNI2-h's block kernels against their plain versions at a 256-patch
+    chunk's rows: swiglu on fc1's [67840, 8192] output bit for bit;
+    add_layer_norm at [67840, 1536] in its three forms, the stream and
+    the LayerNorm bit for bit. One timing line each
+    (bytes: swiglu reads 2F and writes F bf16 a row; add_layer_norm reads
+    x f32 and writes its y bf16, plus the branch read and x written back
+    with an update), beside the unfused ops; then UNI2-h (seeded, bf16)
+    over one chunk, ms a patch, with the kernels and with the plain ops
+    (the served path's launches are `uni2h_serving_phase`'s). Returns the
+    results by kernel."""
+    from wsi_hgnn_tpu_torch import kernels
+    from wsi_hgnn_tpu_torch.kernels import vit as kv
+    from wsi_hgnn_tpu_torch.models.featurizers import vit as tvit
+
+    gen = torch.Generator(device=dev).manual_seed(23)
+    results = {}
+    with torch.inference_mode():
+        h = (torch.randn(VIT_ROWS, 2 * VIT_F, generator=gen, device=dev)
+             * 4).to(torch.bfloat16)
+        check(torch.equal(kv.swiglu(h), kv.swiglu_reference(h)),
+              f"swiglu at [{VIT_ROWS},{2 * VIT_F}] differs from "
+              f"F.silu(a) * b")
+        b = bound(VIT_ROWS * VIT_F * 2 * 3, 0.0, "bfloat16")
+        ms = cuda_ms(lambda: kv.swiglu(h), reps=20, what="swiglu")
+        issued = issued_ms(lambda: kv.swiglu(h), reps=20)
+        plain = cuda_ms(lambda: kv.swiglu_reference(h), reps=10,
+                        what="swiglu_reference")
+        row = shape_line("swiglu", f"[{VIT_ROWS},{2 * VIT_F}]", 1, ms, [b],
+                         card, plain_ms=plain, issued=issued)
+        results["swiglu"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain,
+                                 bound_ms=b[0], bound_by=b[1],
+                                 issued_ms=issued, per_shape=[row])
+        del h
+
+        x = torch.randn(VIT_ROWS, VIT_D, generator=gen, device=dev) * 3
+        gamma = (0.2 * torch.exp(0.1 * torch.randn(
+            VIT_D, generator=gen, device=dev))).to(torch.bfloat16)
+        branch = torch.randn(VIT_ROWS, VIT_D, generator=gen, device=dev
+                             ).to(torch.bfloat16)
+        norm = torch.nn.LayerNorm(VIT_D, eps=tvit.LN_EPS).to(dev)
+        norm.weight.copy_(torch.rand(VIT_D, generator=gen, device=dev) + 0.5)
+        norm.bias.copy_(torch.randn(VIT_D, generator=gen, device=dev) * 0.1)
+        norm = norm.to(torch.bfloat16)
+        per_shape, bounds = [], []
+        total = total_plain = total_issued = 0.0
+        for form, use_branch, use_norm in VIT_FORMS:
+            args = (gamma if use_branch else None,
+                    branch if use_branch else None,
+                    norm if use_norm else None)
+            s_k, s_p = x.clone(), x.clone()
+            y_k = kv.add_layer_norm(s_k, *args)
+            y_p = kv.add_layer_norm_reference(s_p, *args)
+            torch.cuda.synchronize()
+            check(torch.equal(s_k, s_p), f"add_layer_norm ({form}): the "
+                  f"stream differs from torch.addcmul")
+            check(not use_norm or torch.equal(y_k, y_p),
+                  f"add_layer_norm ({form}): the LayerNorm differs from "
+                  f"torch's")
+            del y_k, y_p
+            b = bound(VIT_ROWS * VIT_D * (4 + 6 * use_branch + 2 * use_norm),
+                      0.0, "bfloat16")
+            bounds.append(b)
+            ms = cuda_ms(lambda: kv.add_layer_norm(s_k, *args), reps=20,
+                         what=f"add_layer_norm {form}")
+            issued = issued_ms(lambda: kv.add_layer_norm(s_k, *args),
+                               reps=20)
+            plain = cuda_ms(lambda: kv.add_layer_norm_reference(s_p, *args),
+                            reps=10, what=f"add_layer_norm_reference {form}")
+            per_shape.append(shape_line(
+                "add_layer_norm", f"[{VIT_ROWS},{VIT_D}] {form}", 1, ms, [b],
+                card, plain_ms=plain, issued=issued))
+            total += ms
+            total_plain += plain
+            total_issued += issued
+            del s_k, s_p
+        n = len(VIT_FORMS)
+        b_ms, b_by = mean_bound(bounds)
+        results["add_layer_norm"] = dict(
+            max_abs_err=0.0, ms=total / n, plain_ms=total_plain / n,
+            bound_ms=b_ms, bound_by=b_by, issued_ms=total_issued / n,
+            per_shape=per_shape)
+        del x, branch
+    torch.cuda.empty_cache()
+
+    # ---- UNI2-h over one chunk, ms a patch: the kernels, the plain ops ---
+    model = tvit.make_vit(dev, torch.bfloat16, seed=24)
+    px = torch.randn(VIT_CHUNK, 3, model.img_size, model.img_size,
+                     generator=gen, device=dev).to(torch.bfloat16)
+    depth = len(model.blocks)
+    variants = {}
+    for name, plain in (("swiglu and add_layer_norm", False),
+                        ("plain ops", True)):
+        if plain:
+            tvit.swiglu = kv.swiglu_reference
+            tvit.add_layer_norm = kv.add_layer_norm_reference
+        try:
+            with torch.inference_mode():
+                before = kernels.launch_counts()
+                feats = model(px)
+                torch.cuda.synchronize()
+                after = kernels.launch_counts()
+                ms = cuda_ms(lambda: model(px), reps=VIT_CHUNK_REPS,
+                             warmup=1, what=f"uni2-h chunk ({name})")
+        finally:
+            tvit.swiglu, tvit.add_layer_norm = kv.swiglu, kv.add_layer_norm
+        delta = {k: after[k] - before[k] for k in after}
+        got = {k: delta[k] for k in ("swiglu", "add_layer_norm")}
+        want = ({"swiglu": 0, "add_layer_norm": 0} if plain else
+                {"swiglu": depth, "add_layer_norm": 1 + 2 * depth})
+        check(got == want, f"a UNI2-h chunk ({name}) launched {got}, "
+              f"want {want}")
+        variants[name] = (ms / VIT_CHUNK, feats)
+    (fused_ms, f_k), (plain_ms, f_p) = variants.values()
+    check(torch.equal(f_k, f_p), "a UNI2-h chunk's features with the "
+          "kernels differ from the plain ops'")
+    log(f"timing uni2-h chunk {list(px.shape)} bf16 ms a patch: kernels "
+        f"{fused_ms:.4g}, plain ops {plain_ms:.4g} (saves "
+        f"{plain_ms - fused_ms:.4g}); features equal bit for bit [{card}]")
+    del model, px, variants, f_k, f_p, feats
+    torch.cuda.empty_cache()
+    return results
+
+
 KERNELS = (
     ("knn_l2_fused", "wsi_hgnn_tpu_torch/csrc/knn.cu",
      "wsi_hgnn_tpu/ops/pallas_knn.py:101"),
@@ -730,6 +873,9 @@ KERNELS = (
      "wsi_hgnn_tpu/ops/pallas_densenet.py:183"),
     ("bn_act", "wsi_hgnn_tpu_torch/csrc/bn_act.cu",
      None),    # no TPU kernel: XLA fuses these passes on the TPU
+    ("swiglu", "wsi_hgnn_tpu_torch/csrc/vit_block.cu",
+     None),    # no TPU kernel: the JAX package has no ViT
+    ("add_layer_norm", "wsi_hgnn_tpu_torch/csrc/vit_block.cu", None),
 )
 
 
@@ -747,8 +893,9 @@ PATCH = 256
 REQUESTS = ((2048, 2048), (1000, 1024), (300, 384))   # (patches, size bucket)
 TYPING_LAUNCHES = 76      # bn_act a HoVer-Net typing forward: every BNRelu
 DENSENET_PER_CHUNK = {"dense_layer_fused": 58, "transition_fused": 3}
-# a chunk of KimiaNet features with HoVer-Net typing
-PER_CHUNK = {**DENSENET_PER_CHUNK, "bn_act": TYPING_LAUNCHES}
+# a chunk of KimiaNet features with HoVer-Net typing (none of UNI2-h's)
+PER_CHUNK = {**DENSENET_PER_CHUNK, "bn_act": TYPING_LAUNCHES, "swiglu": 0,
+             "add_layer_norm": 0}
 N_CHECK = 8                # patches of the small-input reference checks
 
 
@@ -1095,7 +1242,100 @@ def server_phase(torch, dev, card, kernels, pred, n=SERVER_N,
     return launches
 
 
-PORT_KERNELS = ("knn_l2", "dense_layer", "transition", "bn_act")   # csrc kernel names
+# GNN section of configs/BRCA/GAT_kimia_classification.yml at UNI2-h's
+# width (the uni2h-serve-pixels cell's configuration)
+GAT_UNI2H = {"name": "GAT", "negative_slope": 0.2, "num_layers": 2,
+             "in_dim": 1536, "hidden_dim": 512, "residual": True,
+             "in_drop": 0.2, "attn_drop": 0.2, "out_dim": 2, "num_heads": 4,
+             "num_out_heads": 1, "feat_drop": 0.2,
+             "graph_pooling_type": "mean"}
+UNI2H_N = 600     # patches of the UNI2-h request: 3 chunks, the last ragged
+
+
+def uni2h_serving_phase(torch, dev, card, kernels, n=UNI2H_N,
+                        chunk=VIT_CHUNK):
+    """The path the uni2h-serve-pixels cell serves: `SlidePredictor` with
+    the GAT (seeded) and `enable_pixels(encoder_name="uni2-h")` (seeded
+    bf16 UNI2-h), so uint8 upload, resize and normalisation inside
+    `encode/vit`, chunks launched ahead, the exact KNN at D = 1536 and
+    the GAT. Counters zeroed just before one n-patch request through
+    `featurize` and `predict_many` and read just after: 24 `swiglu` and
+    1 + 24 x 2 `add_layer_norm` launches a chunk, one KNN, none of
+    HoVer-Net's or KimiaNet's. The served features equal the same
+    request's with the plain ops bit for bit, and the card's
+    probabilities the CPU predictor's on those features. Returns the
+    launch counts of the request."""
+    import numpy as np
+
+    from wsi_hgnn_tpu_torch import convert
+    from wsi_hgnn_tpu_torch.config import parse_gnn_model
+    from wsi_hgnn_tpu_torch.kernels import vit as kv
+    from wsi_hgnn_tpu_torch.models.featurizers import vit as tvit
+    from wsi_hgnn_tpu_torch.serve import SlidePredictor
+
+    t0 = time.perf_counter()
+    cfg = {"GNN": dict(GAT_UNI2H)}
+    typed, hetero = parse_gnn_model(cfg["GNN"])
+    check(not hetero, "the GAT parsed as a heterogeneous model")
+    gnn_vars = convert.to_flax_variables(convert.init_flax_like_(typed,
+                                                                 seed=25))
+    pred = SlidePredictor(cfg, radius=RADIUS, n_node_types=N_TYPES,
+                          variables=gnn_vars, device=dev)
+    pred.enable_pixels(chunk=chunk, encoder_name="uni2-h", seed=26)
+    pred.warmup_pixels(n)
+    px = patch_pool(n, seed=27)
+    log(f"uni2-h serving set-up (seeded GAT and UNI2-h, warm-up) "
+        f"{time.perf_counter() - t0:.1f} s; GAT in {GAT_UNI2H['in_dim']} "
+        f"hidden {GAT_UNI2H['hidden_dim']}, radius {RADIUS}, chunk {chunk}")
+
+    # ---- the main path: counters from 0, one request ---------------------
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t = time.perf_counter()
+    feats, types = pred.featurize(px)
+    probs = pred.predict_many([(feats, types)])
+    ms = (time.perf_counter() - t) * 1e3
+    launches = kernels.launch_counts()
+    depth, chunks = tvit.UNI2H["depth"], -(-n // chunk)
+    want = {"knn_l2_fused": 1, "dense_layer_fused": 0, "transition_fused": 0,
+            "bn_act": 0, "swiglu": depth * chunks,
+            "add_layer_norm": (1 + 2 * depth) * chunks}
+    log(f"uni2-h request {n} patches ({chunks} chunks of {chunk}): "
+        f"{ms:.1f} ms, probs {probs[0].tolist()}, launches {launches}")
+    check(launches == want, f"the {n}-patch UNI2-h request launched "
+          f"{launches}, want {want}")
+    check(feats.shape == (n, GAT_UNI2H["in_dim"]) and np.isfinite(feats).all()
+          and not types.any(), f"UNI2-h features not finite [{n}, "
+          f"{GAT_UNI2H['in_dim']}], or node types not all 0")
+    check(probs.shape == (1, GAT_UNI2H["out_dim"])
+          and np.isfinite(probs).all()
+          and abs(float(probs.sum()) - 1.0) <= 1e-5,
+          f"GAT probabilities {probs} not finite or not summing to 1")
+
+    # ---- the same request with the plain ops; the GAT on the CPU ---------
+    tvit.swiglu = kv.swiglu_reference
+    tvit.add_layer_norm = kv.add_layer_norm_reference
+    try:
+        plain, _ = pred.featurize(px)
+    finally:
+        tvit.swiglu, tvit.add_layer_norm = kv.swiglu, kv.add_layer_norm
+    check(np.array_equal(feats, plain), "the served UNI2-h features with "
+          "swiglu and add_layer_norm differ from the plain ops'")
+    cpu = SlidePredictor(cfg, radius=RADIUS, n_node_types=N_TYPES,
+                         variables=gnn_vars, device="cpu")
+    err = float(np.abs(probs - cpu.predict_many([(feats, types)])).max())
+    log(f"uni2-h served features equal the plain ops' bit for bit; GAT "
+        f"probabilities, card vs CPU plain path: max|err| {err:.3g} (atol "
+        f"1e-4) [{card}]")
+    check(err <= 1e-4, f"card GAT probabilities differ from the CPU path "
+          f"by {err}")
+    del pred
+    torch.cuda.empty_cache()
+    return launches
+
+
+PORT_KERNELS = ("knn_l2", "dense_layer", "transition", "bn_act",  # csrc kernel names
+                "swiglu_kernel", "add_layer_norm_kernel")
 
 
 def profile_span(torch, fn, what: str, card: str, top: int = 12):
@@ -3573,7 +3813,8 @@ def parallel_phase(torch, dev, card, kernels, root: Path,
                                       device=dev), RADIUS, N_TYPES)
     launches_b = kernels.launch_counts()
     check(launches_b == {"knn_l2_fused": 2, "dense_layer_fused": 0,
-                         "transition_fused": 0, "bn_act": 0},
+                         "transition_fused": 0, "bn_act": 0, "swiglu": 0,
+                         "add_layer_norm": 0},
           f"the rank steps' graphs launched {launches_b}")
     labels = np.array([0, 1])
     models, variables = {}, {}
@@ -3826,6 +4067,7 @@ def main() -> int:
     results["transition_fused"] = transition_phase(torch, dn, dev, gen_dev,
                                                    card)
     results["bn_act"] = bn_act_phase(torch, dev, card)
+    results.update(vit_phase(torch, dev, card))
     for name, r in results.items():
         log(f"timing {name}: {r['ms']:.4g} ms/launch (bound {r['bound_ms']:.4g}"
             f" ms by {r['bound_by']}; plain {r['plain_ms']:.4g} ms; "
@@ -3839,7 +4081,8 @@ def main() -> int:
 
     def serving(root):
         served, pred = slice_phase(torch, dev, card, kernels, root)
-        return served, server_phase(torch, dev, card, kernels, pred)
+        return (served, server_phase(torch, dev, card, kernels, pred),
+                uni2h_serving_phase(torch, dev, card, kernels))
 
     def training(root):
         trained, splits = train_phase(torch, dev, card, kernels, root)
@@ -3876,8 +4119,10 @@ def main() -> int:
     launches = {k: sum(c[k] for c in counts) for k in counts[0]}
     log(f"chip_smoke: all phases in {time.perf_counter() - t_start:.1f} s")
 
-    # library_ms is null: no single PyTorch call computes any of the three
-    # functions (a top-k KNN, or a fused affine + GEMM + conv / pool chain)
+    # library_ms is null: no single PyTorch call computes any of the six
+    # functions (a top-k KNN; a fused affine + GEMM + conv / pool chain;
+    # an eval BatchNorm + ReLU after an add; a SwiGLU gate; an addcmul
+    # followed by a LayerNorm of its bf16 cast)
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[name], **results[name], "library_ms": None}

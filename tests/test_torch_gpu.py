@@ -1104,6 +1104,157 @@ def test_uni2h_chunk_on_card_matches_the_f32_reference(cuda, monkeypatch):
     assert float(rel.max()) <= workload["limits"]["feat_rel_l2"]
 
 
+# UNI2-h's one-pass block kernels (kernels/vit.py) against the unfused ops
+# on the card, at a chunk's rows (256 patches x 265 tokens) and a ragged
+# count
+VIT_ROWS = (256 * 265, 1001)
+
+
+def _bf16_ulps_apart(got, want):
+    """|got - want| in units of the bf16 spacing at the larger of the two
+    magnitudes (elementwise)."""
+    g, w = got.float(), want.float()
+    _, e = torch.frexp(torch.maximum(g.abs(), w.abs()))
+    return (g - w).abs() / torch.ldexp(torch.ones_like(g), e - 8)
+
+
+@pytest.mark.parametrize("rows", VIT_ROWS)
+def test_swiglu_equals_silu_times_gate_bit_for_bit(cuda, rows):
+    """swiglu on fc1's [rows, 8192] bf16 output equals F.silu(a) * b on
+    the card bit for bit (values over +-12, SiLU's saturation on both
+    sides included), one launch."""
+    from wsi_hgnn_tpu_torch.kernels import vit as kv
+
+    gen = torch.Generator(device=cuda).manual_seed(rows)
+    h = (torch.randn(rows, 8192, generator=gen, device=cuda) * 4
+         ).to(torch.bfloat16)
+    before = kv.swiglu.launches
+    with torch.inference_mode():
+        got = kv.swiglu(h)
+        want = kv.swiglu_reference(h)
+    torch.cuda.synchronize()
+    assert kv.swiglu.launches == before + 1
+    assert got.shape == (rows, 4096) and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("form", ["update_and_norm", "norm_alone",
+                                  "update_alone"])
+@pytest.mark.parametrize("rows", VIT_ROWS)
+def test_add_layer_norm_stream_and_norm_equal_torch_bit_for_bit(
+        cuda, rows, form):
+    """add_layer_norm at UNI2-h's width: the f32 stream equals
+    torch.addcmul(x, gamma, branch) bit for bit; the bf16 output equals
+    F.layer_norm(x.to(bf16)) with the norm's bf16 weight and bias bit for
+    bit, the kernel taking the Welford order of torch's
+    vectorized_layer_norm_kernel as of torch 2.11 (csrc/vit_block.cu).
+    A failure prints how many bf16 ulps apart the outputs are."""
+    from wsi_hgnn_tpu_torch.kernels import vit as kv
+
+    d = 1536
+    gen = torch.Generator(device=cuda).manual_seed(rows + 7)
+    x = torch.randn(rows, d, generator=gen, device=cuda) * 3 + 0.5
+    gamma = (0.2 * torch.exp(0.1 * torch.randn(d, generator=gen,
+                                               device=cuda))
+             ).to(torch.bfloat16)
+    branch = torch.randn(rows, d, generator=gen, device=cuda
+                         ).to(torch.bfloat16)
+    norm = torch.nn.LayerNorm(d, eps=1e-6).to(cuda)
+    with torch.no_grad():
+        norm.weight.copy_(torch.rand(d, generator=gen, device=cuda) + 0.5)
+        norm.bias.copy_(torch.randn(d, generator=gen, device=cuda) * 0.1)
+    norm = norm.to(torch.bfloat16)
+    use_branch, use_norm = form != "norm_alone", form != "update_alone"
+    with torch.inference_mode():
+        want_x = torch.addcmul(x, gamma, branch) if use_branch else x.clone()
+        want_y = norm(want_x.to(torch.bfloat16)) if use_norm else None
+        stream = x.clone()
+        before = kv.add_layer_norm.launches
+        got_y = kv.add_layer_norm(stream, gamma if use_branch else None,
+                                  branch if use_branch else None,
+                                  norm if use_norm else None)
+    torch.cuda.synchronize()
+    assert kv.add_layer_norm.launches == before + 1
+    assert torch.equal(stream, want_x)
+    if not use_norm:
+        assert got_y is None
+        return
+    ulps = float(_bf16_ulps_apart(got_y, want_y).max())
+    same = float((got_y == want_y).float().mean())
+    assert torch.equal(got_y, want_y), (
+        f"add_layer_norm {form} rows {rows}: up to {ulps:.3g} bf16 ulps "
+        f"from torch's LayerNorm, {same:.6f} of the outputs equal "
+        f"(torch {torch.__version__})")
+
+
+def test_vit_kernels_refuse_what_they_do_not_take(cuda):
+    """On the card the wrappers raise, and launch nothing, for a wrong
+    dtype, a misaligned or strided operand, and an operand that needs a
+    gradient outside inference mode."""
+    from wsi_hgnn_tpu_torch.kernels import vit as kv
+
+    bf = dict(dtype=torch.bfloat16, device=cuda)
+    h = torch.randn(8, 64, **bf)
+    x = torch.randn(8, 96, device=cuda)
+    g, r = torch.randn(96, **bf), torch.randn(8, 96, **bf)
+    norm = torch.nn.LayerNorm(96, eps=1e-6).to(**bf)
+    before = (kv.swiglu.launches, kv.add_layer_norm.launches)
+    bad_swiglu = (h.float(), h[:, :48],
+                  torch.randn(8 * 64 + 1, **bf)[1:].view(8, 64),
+                  h.clone().requires_grad_())
+    bad_aln = ((x.to(torch.bfloat16), g, r, norm), (x, g.float(), r, norm),
+               (x, g, r.float(), norm), (x, g, r, norm.float()),
+               (torch.randn(8 * 96 + 1, device=cuda)[1:].view(8, 96), g, r,
+                norm),
+               (x.t().contiguous().t(), g, r, norm),
+               (x, g, r.clone().requires_grad_(), norm))
+    with torch.inference_mode():     # all but the gradient cases
+        for arg in bad_swiglu[:-1]:
+            with pytest.raises(ValueError):
+                kv.swiglu(arg)
+        for args in bad_aln[:-1]:
+            with pytest.raises(ValueError):
+                kv.add_layer_norm(*args)
+    with pytest.raises(ValueError, match="backward"):
+        kv.swiglu(bad_swiglu[-1])
+    with pytest.raises(ValueError, match="backward"):
+        kv.add_layer_norm(*bad_aln[-1])
+    assert (kv.swiglu.launches, kv.add_layer_norm.launches) == before
+
+
+def test_uni2h_request_launches_both_kernels_per_chunk(cuda, monkeypatch):
+    """A 4096-patch request through the uni2h cell's predictor (chunks of
+    256): 16 chunks of 24 swiglu and 1 + 24 x 2 add_layer_norm launches,
+    none of HoVer-Net's or KimiaNet's kernels, features finite."""
+    monkeypatch.syspath_prepend(str(ROOT / "benchmark"))
+    import models as bench_models
+    from reference import gat
+    from reference import vit as ref_vit
+    from reference import weights as W
+    from run import load_cell
+
+    _, cfg = load_cell("uni2h-serve-pixels")
+    arch = ref_vit.arch_of(cfg)
+    chunk = int(cfg["pixels"]["chunk"])
+    pred = bench_models.predictor(
+        cfg, W.make_weights(gat.spec(cfg["GNN"]), 31, cuda), cuda)
+    pred.enable_pixels(chunk=chunk, encoder_name="uni2-h",
+                       encoder_config={"vit": arch},
+                       vit_state_dict=ref_vit.make_weights(
+                           ref_vit.spec(arch), 32, cuda))
+    pool = bench_models.patch_pool(4096, 256, 33, cuda)
+    kernels.reset_launch_counts()
+    feats, _ = pred.featurize(pool)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    chunks = 4096 // chunk
+    assert chunk == 256 and chunks == 16
+    assert counts["swiglu"] == chunks * 24
+    assert counts["add_layer_norm"] == chunks * 49
+    assert counts["dense_layer_fused"] == counts["transition_fused"] \
+        == counts["bn_act"] == 0
+    assert feats.shape == (4096, 1536) and np.isfinite(feats).all()
+
+
 def test_chunks_launched_ahead_equal_chunks_run_one_at_a_time(cuda,
                                                               monkeypatch):
     """KimiaNet with HoVer-Net typing (the heat4 pixel path) on three
@@ -1377,7 +1528,8 @@ def test_fused_kimianet_f32_at_simclr_batch_matches_module(cuda):
     assert kernels.launch_counts() == {"knn_l2_fused": 0,
                                        "dense_layer_fused": 58,
                                        "transition_fused": 3,
-                                       "bn_act": 0}
+                                       "bn_act": 0, "swiglu": 0,
+                                       "add_layer_norm": 0}
     torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-4)
 
 

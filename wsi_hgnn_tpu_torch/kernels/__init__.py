@@ -9,8 +9,10 @@ from typing import Dict
 from .densenet import dense_layer_fused, transition_fused
 from .hovernet import bn_act
 from .knn import knn_l2_fused
+from .vit import add_layer_norm, swiglu
 
-WRAPPERS = (knn_l2_fused, dense_layer_fused, transition_fused, bn_act)
+WRAPPERS = (knn_l2_fused, dense_layer_fused, transition_fused, bn_act, swiglu,
+            add_layer_norm)
 
 
 def launch_counts() -> Dict[str, int]:

@@ -21,7 +21,7 @@ from typing import Dict, Iterable, List
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
-SOURCES = ("knn", "dense_layer", "transition", "bn_act")
+SOURCES = ("knn", "dense_layer", "transition", "bn_act", "vit_block")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
 

@@ -23,9 +23,23 @@ so a timm state dict loads as it is. On the card the weights are bf16:
 torch's bf16 products (f32 accumulation), LayerNorm and softmax
 statistics in f32, `scaled_dot_product_attention` (flash at head width
 64). The residual stream h stays f32, as under torch.autocast: each
-update is one `addcmul` of the bf16 branch into it, and each LayerNorm
-reads it rounded to bf16 (a bf16 stream doubles the features' error
-over 24 blocks). f32 throughout on the CPU.
+update adds the bf16 branch times its LayerScale into it, and each
+LayerNorm reads it rounded to bf16 (a bf16 stream doubles the features'
+error over 24 blocks). f32 throughout on the CPU.
+
+Launch order: the GEMMs are `nn.Linear`'s and the attention SDPA's; the
+passes between them are `kernels.vit` (csrc/vit_block.cu on the card,
+the unfused ops on the CPU). After the token concat, `add_layer_norm`
+without a branch gives block 0's LN1. Each block then runs
+
+    attn(y) -> add_layer_norm(h, ls1, ., norm2)       h updated, y = LN2(h)
+    fc1(y) -> swiglu -> fc2 -> add_layer_norm(h, ls2, ., next LN1)
+
+where the next LN1 is the next block's norm1, and none after the last
+block, whose second update runs alone. A chunk makes 24 `swiglu` and
+1 + 24 x 2 = 49 `add_layer_norm` launches, then the final LayerNorm of
+the CLS rows in f32. The stream is updated in place: the ViT runs frozen,
+under `torch.inference_mode()`.
 """
 from __future__ import annotations
 
@@ -36,6 +50,8 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ...kernels.vit import add_layer_norm, swiglu
 
 # the model card's timm settings, as this module's keyword arguments
 UNI2H = dict(img_size=224, patch_size=14, embed_dim=1536, depth=24,
@@ -83,8 +99,7 @@ class GluMlp(nn.Module):
         self.fc2 = nn.Linear(hidden // 2, dim)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        a, b = self.fc1(x).chunk(2, dim=-1)
-        return self.fc2(F.silu(a) * b)
+        return self.fc2(swiglu(self.fc1(x)))
 
 
 class Block(nn.Module):
@@ -97,11 +112,13 @@ class Block(nn.Module):
         self.mlp = GluMlp(dim, mlp_hidden)
         self.ls2 = LayerScale(dim)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        # x: the f32 residual stream; the branches run in the weights' dtype
-        dt = self.norm1.weight.dtype
-        x = torch.addcmul(x, self.ls1.gamma, self.attn(self.norm1(x.to(dt))))
-        return torch.addcmul(x, self.ls2.gamma, self.mlp(self.norm2(x.to(dt))))
+    def forward(self, x: torch.Tensor, y: torch.Tensor,
+                next_norm: Optional[nn.LayerNorm]) -> Optional[torch.Tensor]:
+        """x: the f32 residual stream, updated in place; y: norm1 of it,
+        in the weights' dtype. Returns next_norm of the updated stream
+        (None when next_norm is None)."""
+        y = add_layer_norm(x, self.ls1.gamma, self.attn(y), self.norm2)
+        return add_layer_norm(x, self.ls2.gamma, self.mlp(y), next_norm)
 
 
 class ViT(nn.Module):
@@ -131,8 +148,10 @@ class ViT(nn.Module):
         b = h.shape[0]
         h = torch.cat([self.cls_token.float().expand(b, -1, -1),
                        self.reg_token.float().expand(b, -1, -1), h], dim=1)
-        for blk in self.blocks:
-            h = blk(h)
+        blocks = list(self.blocks)
+        y = add_layer_norm(h, None, None, blocks[0].norm1) if blocks else None
+        for blk, nxt in zip(blocks, blocks[1:] + [None]):
+            y = blk(h, y, None if nxt is None else nxt.norm1)
         # the final LayerNorm of the CLS row alone, in f32
         return F.layer_norm(h[:, 0], self.norm.normalized_shape,
                             self.norm.weight.float(), self.norm.bias.float(),
