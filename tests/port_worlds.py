@@ -26,30 +26,36 @@ import torch
 # ---------------------------------------------------------------------------
 
 
-def _entry(rank: int, world: int, store: str, case, inputs, out_dir: str):
+def _entry(rank: int, world: int, store: str, case, inputs, out_dir: str,
+           device: str = "cpu"):
     import torch.distributed as dist
 
     from wsi_hgnn_tpu_torch.parallel import make_mesh
+    from wsi_hgnn_tpu_torch.utils import set_cuda_numerics
 
     torch.set_num_threads(1)
+    if device != "cpu":
+        set_cuda_numerics()
     dist.init_process_group("gloo", init_method=f"file://{store}",
                             rank=rank, world_size=world)
     try:
-        result = case(make_mesh(device="cpu"), inputs)
+        result = case(make_mesh(device=device), inputs)
     finally:
         dist.destroy_process_group()
     with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
         pickle.dump(result, f)
 
 
-def run_world(case, world: int, tmp_path: Path, inputs=None):
-    """[result of rank 0, ..., rank world-1] of `case(mesh, inputs)`."""
+def run_world(case, world: int, tmp_path: Path, inputs=None,
+              device: str = "cpu"):
+    """[result of rank 0, ..., rank world-1] of `case(mesh, inputs)`;
+    every rank's mesh is on `device` ('cuda': all ranks on one card)."""
     import torch.multiprocessing as mp
 
     tmp_path = Path(tmp_path)
     tmp_path.mkdir(parents=True, exist_ok=True)
     mp.spawn(_entry, args=(world, str(tmp_path / "store"), case, inputs,
-                           str(tmp_path)), nprocs=world, join=True)
+                           str(tmp_path), device), nprocs=world, join=True)
     out = []
     for r in range(world):
         with open(tmp_path / f"rank{r}.pkl", "rb") as f:
@@ -113,6 +119,29 @@ def host_graph(arrays: dict):
     from wsi_hgnn_tpu_torch.graph.typed_graph import TypedGraph
 
     return TypedGraph(**arrays)
+
+
+def device_graph_arrays(g) -> dict:
+    """A device TypedGraph's arrays on the host, as host_graph's dict."""
+    arrays = {f: getattr(g, f).cpu().numpy() for f in (
+        "feat", "node_type", "node_graph", "node_mask", "src", "dst",
+        "esign", "sim", "edge_mask")}
+    return dict(arrays, n_graphs=g.n_graphs, n_node_types=g.n_node_types,
+                n_edge_types=g.n_edge_types)
+
+
+def slide_arrays(arrays: dict, r: int, n: int) -> dict:
+    """Slide r of a build_batch_device batch of equal n-node slides (nodes
+    and src-major edges contiguous per slide) as one slide's arrays."""
+    e = arrays["src"].shape[0] // arrays["n_graphs"]
+    nodes, edges = slice(r * n, (r + 1) * n), slice(r * e, (r + 1) * e)
+    out = {k: arrays[k][nodes] for k in ("feat", "node_type", "node_mask")}
+    out.update({k: arrays[k][edges] for k in ("esign", "sim", "edge_mask")})
+    return dict(out, src=arrays["src"][edges] - r * n,
+                dst=arrays["dst"][edges] - r * n,
+                node_graph=arrays["node_graph"][nodes] * 0, n_graphs=1,
+                n_node_types=arrays["n_node_types"],
+                n_edge_types=arrays["n_edge_types"])
 
 
 # ---------------------------------------------------------------------------
@@ -258,6 +287,42 @@ def dp_step(mesh, inp):
     loss, probs = step(g, y, w, rank_generator(inp.get("seed", 0), mesh))
     stats = convert.to_flax_variables(model).get("batch_stats", {})
     return float(loss), params_flax(model), flat(stats)
+
+
+def card_steps(mesh, inp):
+    """On this rank's card (SGD lr 1e-3, no augmentation): the edge-sharded
+    HEAT4 and GCN steps on this rank's slice of inp['graph']'s edges,
+    then the data-parallel GCN step on this rank's slide. {name: (loss,
+    gradients by parameter name)}."""
+    from wsi_hgnn_tpu_torch.config import parse_loss
+    from wsi_hgnn_tpu_torch.parallel import (local_edges,
+                                             make_big_graph_train_step,
+                                             make_dp_train_step, place_state,
+                                             rank_generator)
+
+    dev, loss_fcn = mesh.device, parse_loss({"loss": "CE"})
+    labels = torch.as_tensor(inp["labels"], device=dev)
+    weights = torch.ones(len(labels), device=dev)
+
+    def run(name, make_step, g, y, w, gen):
+        model = port_model(inp["gnn"][name], inp["variables"][name]).to(dev)
+        opt = torch.optim.SGD(model.parameters(), lr=1e-3)
+        if make_step is make_dp_train_step:
+            place_state(model, opt, mesh)
+        loss, _ = make_step(model, opt, loss_fcn, name == "HEAT4", mesh,
+                            augment=False)(g, y, w, gen)
+        return float(loss), {n: p.grad.cpu().numpy()
+                             for n, p in model.named_parameters()}
+
+    out = {name: run(name, make_big_graph_train_step,
+                     local_edges(host_graph(inp["graph"]), mesh), labels,
+                     weights, torch.Generator(device=dev).manual_seed(0))
+           for name in ("HEAT4", "GCN")}
+    r = mesh.rank
+    out["dp"] = run("GCN", make_dp_train_step,
+                    host_graph(inp["slides"][r]).to_torch(dev),
+                    labels[r:r + 1], weights[r:r + 1], rank_generator(0, mesh))
+    return out
 
 
 def trainer_big_graph(mesh, inp):

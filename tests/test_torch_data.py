@@ -223,15 +223,52 @@ def test_probe_pack_and_loader_match_jax(tmp_path, drop):
         assert any(r.any() for r in short_rows)
     j_loader = jll.LatticeLoader(j_ds, 3, k, cap, shuffle=True, seed=5)
     t_loader = tll.LatticeLoader(t_ds, 3, k, cap, shuffle=True, seed=5)
+    padded = 0
     for _ in range(2):  # two epochs: the shuffle stream continues alike
         for (jg, jl, jw), (tg, tl, tw) in zip(j_loader, t_loader):
             np.testing.assert_array_equal(tl, jl)
             np.testing.assert_array_equal(tw, jw)
+            padded += int((tw == 0).sum())
             for a, b in zip(tg, jg):
                 assert isinstance(a, torch.Tensor)
                 if np.issubdtype(np.asarray(b).dtype, np.integer):
                     assert a.dtype == torch.int64
                 np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    assert padded == 2 * 2   # 7 slides in batches of 3: a tail of 1 an epoch
+
+
+@pytest.mark.parametrize("kind", ["graph", "lattice"])
+def test_short_tail_repeats_the_first_slide_at_weight_zero(tmp_path,
+                                                           monkeypatch, kind):
+    """A tail of one slide in a batch of three: both loaders pad it with
+    the first slide at label 0 and weight 0, and the lattice loader packs
+    that slide once."""
+    from wsi_hgnn_tpu_torch.data.loader import GraphLoader
+
+    lst, normal = _cohort(tmp_path, n_slides=2)
+    ds = tds.GraphDataset(lst, normal, "BRCA", "train")
+    packed = []
+    pack = tll.pack_slide
+    monkeypatch.setattr(tll, "pack_slide",
+                        lambda g, *a: packed.append(g) or pack(g, *a))
+    if kind == "lattice":
+        k, cap = tll.probe_lattice(ds)
+        loader = tll.LatticeLoader(ds, 3, k, cap, shuffle=False)
+    else:
+        loader = GraphLoader(ds, 3, shuffle=False, prefetch=0)
+    g, labels, weights = loader._make_batch([1])
+    np.testing.assert_array_equal(labels, [ds[1][1], 0, 0])
+    np.testing.assert_array_equal(weights, [1.0, 0.0, 0.0])
+    if kind == "lattice":
+        assert len(packed) == 1
+        for leaf in g:
+            np.testing.assert_array_equal(leaf[1], leaf[0])
+            np.testing.assert_array_equal(leaf[2], leaf[0])
+    else:
+        n = int(np.asarray(ds[1][0].node_mask).sum())
+        assert g.n_graphs == 3
+        np.testing.assert_array_equal(np.bincount(
+            np.asarray(g.node_graph)[np.asarray(g.node_mask)]), [n] * 3)
 
 
 def test_probe_rejects_what_does_not_pack():

@@ -1,6 +1,8 @@
 """Card-only tests of the port: each hand-written CUDA kernel against its
-plain PyTorch version on the card, and the serving and training paths on
-the card against the CPU path.
+plain PyTorch version on the card, and every path of the port on the
+card against the CPU path: serving (HTTP too), training and the zoo,
+construction and tiling, explanation, the MIL tools, and the sharded
+encoders and steps with every rank on the one card.
 
 Marked `gpu`; each test asks the `cuda` fixture for the card and skips
 without one, so every process collects the same tests. The module
@@ -47,6 +49,11 @@ ROOT = Path(__file__).resolve().parents[1]
 # the bottleneck is rounded to bf16 before the 3x3 conv
 TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4),
        torch.bfloat16: dict(rtol=2e-2, atol=3e-2)}
+
+
+def _counts(**launched):
+    """Every kernel's launch count: `launched`, the others 0."""
+    return {k: launched.get(k, 0) for k in kernels.launch_counts()}
 
 
 @pytest.fixture
@@ -512,18 +519,13 @@ def assert_grads_match(named_cpu, named_dev, run64, base64, dev):
     assert not failed, (failed, text)
 
 
-def test_train_step_on_card_matches_cpu(cuda):
-    """One Adam step from the same weights, batch, augmentation and dropout
-    masks: loss to 1e-5 relative, and every parameter's gradient to 1e-4
-    relative L2 (the gradients the step leaves in `.grad`; see
-    assert_grads_match)."""
-    rng = np.random.RandomState(4)
-    b, n = 2, 400
-    g_cpu = tlat.build_lattice_device(
-        torch.from_numpy(rng.randn(b, n, 32).astype(np.float32)),
-        torch.from_numpy(rng.randint(0, 6, (b, n))),
-        torch.arange(n)[None, :] < torch.tensor([[n], [n - 37]]), 9, 6)
-    model = convert.init_flax_like_(parse_lattice_twin(SMALL_GNN), seed=0)
+def _lattice_step_judged(cuda, gnn, g_cpu):
+    """One lattice Adam step of `gnn`'s HEAT4 from seed 0's init on the
+    batch `g_cpu` (labels 0, 1), on the CPU and on the card, with the
+    augmentation and dropout masks drawn once. Returns ((loss, prob,
+    model) on the CPU, the same on the card, judge_grads' text and
+    failed names)."""
+    model = convert.init_flax_like_(parse_lattice_twin(gnn), seed=0)
     gen = torch.Generator().manual_seed(1)
     masks = tlat.draw_train_masks(g_cpu, gen)
     drops = model.draw_dropout_masks(g_cpu, gen)
@@ -531,7 +533,7 @@ def test_train_step_on_card_matches_cpu(cuda):
     loss_fn = parse_loss({"loss": "CE"})
     labels, weights = torch.tensor([0, 1]), torch.tensor([1.0, 1.0])
     res = []
-    base64 = convert.init_flax_like_(parse_lattice_twin(SMALL_GNN), seed=0)
+    base64 = convert.init_flax_like_(parse_lattice_twin(gnn), seed=0)
     base64.double()
 
     def run64(m, dev):
@@ -546,64 +548,166 @@ def test_train_step_on_card_matches_cpu(cuda):
 
     for dev, m in ((torch.device("cpu"), model),
                    (cuda, convert.init_flax_like_(
-                       parse_lattice_twin(SMALL_GNN), seed=0).to(cuda))):
+                       parse_lattice_twin(gnn), seed=0).to(cuda))):
         loss, prob = lattice_train_step(
             m, parse_optimizer(optim, m.parameters()), loss_fn,
             tlat.LatticeGraph(*(a.to(dev) for a in g_cpu)), labels.to(dev),
             weights.to(dev), masks=tlat.TrainMasks(*(a.to(dev) for a in masks)),
             drop_masks=[a.to(dev) for a in drops])
         res.append((float(loss), prob.cpu(), m))
-    (l_cpu, p_cpu, m_cpu), (l_dev, p_dev, m_dev) = res
+    text, failed, _ = judge_grads(res[0][2].named_parameters(),
+                                  res[1][2].named_parameters(), run64, base64,
+                                  cuda)
+    return (*res, text, failed)
+
+
+def test_train_step_on_card_matches_cpu(cuda):
+    """One Adam step from the same weights, batch, augmentation and dropout
+    masks: loss to 1e-5 relative, and every parameter's gradient to 1e-4
+    relative L2 (the gradients the step leaves in `.grad`; see
+    assert_grads_match)."""
+    rng = np.random.RandomState(4)
+    b, n = 2, 400
+    g_cpu = tlat.build_lattice_device(
+        torch.from_numpy(rng.randn(b, n, 32).astype(np.float32)),
+        torch.from_numpy(rng.randint(0, 6, (b, n))),
+        torch.arange(n)[None, :] < torch.tensor([[n], [n - 37]]), 9, 6)
+    (l_cpu, p_cpu, _), (l_dev, p_dev, _), text, failed = \
+        _lattice_step_judged(cuda, SMALL_GNN, g_cpu)
     assert abs(l_dev - l_cpu) <= 1e-5 * abs(l_cpu)
     torch.testing.assert_close(p_dev, p_cpu, rtol=1e-5, atol=1e-6)
-    assert_grads_match(m_cpu.named_parameters(), m_dev.named_parameters(),
-                       run64, base64, cuda)
+    assert not failed, (failed, text)
 
 
-def test_trainer_one_epoch_on_card(cuda, tmp_path):
-    """The whole lattice trainer for one epoch on 4 slides whose graphs
-    were built on the card, then the evaluator on its checkpoint on the
-    card and on the CPU."""
-    rng = np.random.RandomState(2)
-    paths, normals = [], []
-    for i in range(4):
-        n = int(rng.randint(200, 500))
-        feat = (rng.randn(n, 32) + 0.5 * (i % 2)).astype(np.float32)
-        types = rng.randint(0, 6, n).astype(np.int32)
-        before = kknn.knn_l2_fused.launches
-        g = tlat.build_lattice_device(
-            torch.from_numpy(feat[None]).to(cuda),
-            torch.from_numpy(types[None]).to(cuda),
-            torch.ones(1, n, dtype=torch.bool, device=cuda), 9, 6)
-        assert kknn.knn_l2_fused.launches == before + 1
-        barcode = f"TCGA-XX-{i:04d}-01Z-00-DX1"
-        paths.append(str(tmp_path / f"{barcode}.npz"))
-        save_graph_npz(paths[-1], feat, np.repeat(np.arange(n), 8),
-                       g.idx[0].reshape(-1).cpu().numpy(), node_type=types,
-                       esign=g.esign[0].reshape(-1).cpu().numpy(),
-                       sim=g.sim[0].reshape(-1).cpu().numpy())
-        if i % 2 == 0:
-            normals.append(barcode[:16])
-    (tmp_path / "split.txt").write_text("\n".join(paths) + "\n")
-    (tmp_path / "normal.txt").write_text("\n".join(normals) + "\n")
-    split = str(tmp_path / "split.txt")
-    cfg = {"datasets": {"dataset": "BRCA", "task": "cancer classification",
-                        "train_path": split, "eval_path": split,
-                        "valid_path": split,
-                        "normal_path": str(tmp_path / "normal.txt")},
-           "checkpoint": {"path": str(tmp_path / "ckpt")},
-           "optimizer": {"opt_method": "ADAM", "lr": 1e-3,
-                         "weight_decay": 5e-3},
-           "GNN": dict(SMALL_GNN),
-           "train": {"num_epochs": 1, "batch_size": 2, "loss": "CE"}}
-    stats = GNNTrainer(cfg, seed=0, device=cuda).train()
+def test_lattice_train_step_on_card_matches_cpu_at_brca_width(cuda):
+    """The lattice step of configs/BRCA/HEAT4_kimia_classification.yml's
+    HEAT4 (in 1024, hidden 512, 4 heads) on two seeded slides of 800-1600
+    nodes: loss to 1e-5 relative, gradients by the float64 judge."""
+    rng = np.random.RandomState(4)
+    sizes = rng.randint(800, 1601, 2)
+    n = int(sizes.max())
+    g_cpu = tlat.build_lattice_device(
+        torch.from_numpy((rng.randn(2, n, 1024) + 0.5 * np.arange(2)[
+            :, None, None]).astype(np.float32)),
+        torch.from_numpy(rng.randint(0, 6, (2, n))),
+        torch.arange(n)[None, :] < torch.from_numpy(sizes)[:, None], 9, 6)
+    (l_cpu, _, _), (l_dev, _, _), text, failed = _lattice_step_judged(
+        cuda, load_config(BRCA["HEAT4"][0])["GNN"], g_cpu)
+    assert abs(l_dev - l_cpu) <= 1e-5 * abs(l_cpu)
+    assert not failed, (failed, text)
+
+
+# every zoo family at its BRCA classification config's widths (in_dim
+# 1024), as GNNTrainer trains it: (config, train overrides); HEAT4 on the
+# lattice, and HEAT4 with the lattice off on the TypedGraph path
+BRCA = {name: (ROOT / f"configs/BRCA/{stem}.yml", train)
+        for name, stem, train in (
+            ("GCN", "GCN_kimia_classification", {}),
+            ("GAT", "GAT_kimia_classification", {}),
+            ("GIN", "GIN_kimia_classification", {}),
+            ("GCN_NTPool", "GCN_NTPool_kimia_classification", {}),
+            ("HetRGCN", "HetRGCN_kimia_classification", {}),
+            ("HGT", "HGT_kimia_classification", {}),
+            ("GCN_asap", "GCN_asap_classification", {}),
+            ("HEAT4", "HEAT4_kimia_classification", {}),
+            ("HEAT4_typed", "HEAT4_kimia_classification",
+             {"lattice": "off"}))}
+COHORT = (("train", 6), ("val", 3), ("test", 3))   # slides per split
+
+
+def _write_cohort(cuda, root, in_dim, hetero, seed=2):
+    """12 seeded slides of 800-1600 patches (tumour slides, odd index,
+    shifted by +0.5) under TCGA barcodes, each graph built on the card by
+    one KNN launch, split 6/3/3; untyped files (self-loops added at load)
+    for homogeneous models. Returns {split: list file}."""
+    rng = np.random.RandomState(seed)
+    splits, normals, i = {}, [], 0
+    for split, count in COHORT:
+        paths = []
+        for _ in range(count):
+            n = int(rng.randint(800, 1601))
+            feat = (rng.randn(n, in_dim) + 0.5 * (i % 2)).astype(np.float32)
+            types = rng.randint(0, 6, n).astype(np.int32)
+            before = kknn.knn_l2_fused.launches
+            g = tlat.build_lattice_device(
+                torch.from_numpy(feat[None]).to(cuda),
+                torch.from_numpy(types[None]).to(cuda),
+                torch.ones(1, n, dtype=torch.bool, device=cuda), 9, 6)
+            assert kknn.knn_l2_fused.launches == before + 1
+            barcode = f"TCGA-XX-{i:04d}-01Z-00-DX1"
+            paths.append(str(root / f"{barcode}.npz"))
+            save_graph_npz(paths[-1], feat, np.repeat(np.arange(n), 8),
+                           g.idx[0].reshape(-1).cpu().numpy(),
+                           node_type=types,
+                           esign=g.esign[0].reshape(-1).cpu().numpy(),
+                           sim=g.sim[0].reshape(-1).cpu().numpy(),
+                           is_hetero=hetero)
+            if i % 2 == 0:
+                normals.append(barcode[:16])
+            i += 1
+        splits[split] = root / f"{split}.txt"
+        splits[split].write_text("\n".join(paths) + "\n")
+    (root / "normal.txt").write_text("\n".join(normals) + "\n")
+    return splits
+
+
+@pytest.mark.parametrize("family", sorted(BRCA))
+def test_trainer_one_epoch_on_card(cuda, tmp_path, family):
+    """The whole trainer for one epoch, at the family's BRCA config's
+    widths and batch size, on 12 slides of 800-1600 x 1024 whose graphs
+    were built on the card (HEAT4 on the lattice; the other families, and
+    HEAT4 with the lattice off, on the TypedGraph path): a finite loss a
+    step; the evaluator on its checkpoint, on the card and on the CPU,
+    equal to the trainer's last test metrics over a test split of both
+    classes; and SlidePredictor(checkpoint_path=) on the card, each
+    graph rebuilt from the slide's features by one KNN launch and no
+    other kernel, equal to the evaluator."""
+    path, train = BRCA[family]
+    cfg = load_config(path)
+    splits = _write_cohort(cuda, tmp_path, int(cfg["GNN"]["in_dim"]),
+                           parse_gnn_model(cfg["GNN"])[1])
+    cfg["datasets"].update(
+        train_path=str(splits["train"]), valid_path=str(splits["val"]),
+        eval_path=str(splits["test"]),
+        normal_path=str(tmp_path / "normal.txt"))
+    cfg["checkpoint"]["path"] = str(tmp_path / "ckpt")
+    cfg["train"].update(train, num_epochs=1)
+    trainer = GNNTrainer(cfg, seed=0, device=cuda)
+    losses, step = [], trainer.train_step
+
+    def recorded(*batch):
+        out = step(*batch)
+        losses.append(float(out[0]))
+        return out
+
+    trainer.train_step = recorded
+    stats = trainer.train()
+    assert trainer.lattice == (family == "HEAT4")
+    assert len(losses) == -(-6 // int(cfg["train"]["batch_size"]))
+    assert np.isfinite(losses).all()
     assert stats["Epoch"] == 1 and np.isfinite(stats["Train Loss: "])
     assert (tmp_path / "ckpt" / "model_v1.msgpack").exists()
     on_card = HomoGraphEvaluator(cfg, verbose=False, device=cuda)
     on_cpu = HomoGraphEvaluator(cfg, verbose=False, device="cpu")
-    np.testing.assert_allclose(on_card.eval(), on_cpu.eval(), atol=1e-6)
+    got = on_card.eval()
+    np.testing.assert_allclose(got, on_cpu.eval(), atol=1e-6)
+    np.testing.assert_allclose(got, [stats[f"Testing {m}"] for m in (
+        "Accuracy", "F1", "Precision", "Recall", "AUC")], atol=1e-5)
+    assert on_card.splits.loader_of(on_card.test_data)[0] == (
+        "lattice" if family == "HEAT4" else "typed")
+    assert set(on_card.last_metrics["label"].tolist()) == {0, 1}
     np.testing.assert_allclose(on_card.last_metrics["prob"],
                                on_cpu.last_metrics["prob"], atol=1e-4)
+    pred = SlidePredictor(cfg, checkpoint_path=str(tmp_path / "ckpt"),
+                          device=cuda)
+    served = []
+    kernels.reset_launch_counts()
+    for path in on_card.test_data.graph_paths:
+        with np.load(path) as z:
+            served.append(pred.predict(z["feat"], z["node_type"]))
+    assert kernels.launch_counts() == _counts(knn_l2_fused=3)
+    np.testing.assert_allclose(np.stack(served), on_card.last_metrics["prob"],
+                               atol=1e-4)
 
 
 # one small GNN section per zoo family (widths 32, 2 layers, 2 heads)
@@ -651,6 +755,23 @@ def test_typed_train_step_on_card_matches_cpu(cuda, family):
     L2 or judged by float64 (assert_grads_match), running statistics to
     1e-4."""
     _typed_step_matches(cuda, ZOO[family], seed=0)
+
+
+@pytest.mark.parametrize("family", sorted(set(BRCA) - {"HEAT4", "GCN_asap"}))
+def test_typed_train_step_on_card_matches_cpu_at_brca_width(cuda, family):
+    """One TypedGraph Adam step per zoo family at its BRCA config's
+    widths (in 1024) on two seeded slides of 1000-3000 nodes, the masks
+    the CPU step drew replayed on the card: loss to 1e-5 relative,
+    gradients by the float64 judge. (GCN_asap's is
+    test_asap_step_on_card_matches_cpu_at_brca_width; HEAT4's lattice
+    step test_lattice_train_step_on_card_matches_cpu_at_brca_width.)"""
+    section = load_config(BRCA[family][0])["GNN"]
+    host = _seeded_slides(int(section["in_dim"]),
+                          parse_gnn_model(section)[1])
+    (l_cpu, _, _), (l_dev, _, _), text, failed, _ = _typed_step_judged(
+        cuda, section, 0, host)
+    assert abs(l_dev - l_cpu) <= 1e-5 * abs(l_cpu)
+    assert not failed, (failed, text)
 
 
 ASAP_BRCA = ROOT / "configs/BRCA/GCN_asap_classification.yml"
@@ -811,10 +932,11 @@ def _flat(tree, prefix=""):
     return out
 
 
-@pytest.mark.parametrize("family", ["GCN", "HGT"])
+@pytest.mark.parametrize("family", sorted(ZOO))
 def test_typed_predictor_on_card_launches_the_knn_per_slide(cuda, family):
-    """SlidePredictor's TypedGraph path on the card builds each slide's
-    graph through the KNN kernel (one launch per slide) and answers as
+    """SlidePredictor's TypedGraph path on the card, for every zoo family
+    (HEAT4 with the lattice off), builds each slide's graph through the
+    KNN kernel (one launch per slide, no other kernel) and answers as
     the CPU path does."""
     gnn = dict(ZOO[family], in_dim=64)
     model, _ = parse_gnn_model(gnn)
@@ -822,20 +944,26 @@ def test_typed_predictor_on_card_launches_the_knn_per_slide(cuda, family):
     rng = np.random.RandomState(3)
     slides = [(rng.randn(n, 64).astype(np.float32),
                rng.randint(0, 6, n).astype(np.int32)) for n in (300, 41, 700)]
-    on_card = SlidePredictor({"GNN": gnn}, variables=variables, device=cuda)
-    on_cpu = SlidePredictor({"GNN": gnn}, variables=variables, device="cpu")
+    on_card, on_cpu = (SlidePredictor({"GNN": gnn}, variables=variables,
+                                      device=d, use_lattice=False)
+                       for d in (cuda, "cpu"))
     assert not on_card.uses_lattice(3, 768)
-    before = kknn.knn_l2_fused.launches
+    kernels.reset_launch_counts()
     got = on_card.predict_many(slides)
-    assert kknn.knn_l2_fused.launches == before + 3
+    assert kernels.launch_counts() == _counts(knn_l2_fused=3)
     np.testing.assert_allclose(got, on_cpu.predict_many(slides), atol=1e-4)
 
 
 def test_server_round_trip_on_card(cuda):
-    """BatchingServer over a predictor on the card: concurrent feature
-    requests (grouped and padded to max_batch) answer as the CPU
-    predictor answers each slide alone, one KNN launch per padded slide,
-    and /healthz reports no version for given variables."""
+    """BatchingServer over a predictor on the card (HEAT4 at
+    configs/BRCA/HEAT4_kimia_classification.yml's widths): concurrent
+    feature requests of 41-2048 patches (grouped and padded to
+    max_batch) answer as the CPU predictor answers each slide alone, one
+    KNN launch per padded slide, and /healthz reports no version for
+    given variables; then two concurrent pixel requests of 300 patches
+    (seeded KimiaNet and HoVer-Net typing, chunks of 128) answer as the
+    same patches served alone through the predictor, with each chunk's
+    DenseNet and bn_act launches and one KNN per padded slide."""
     import io
     import json
     import threading
@@ -843,48 +971,72 @@ def test_server_round_trip_on_card(cuda):
 
     from wsi_hgnn_tpu_torch.serve import BatchingServer
 
-    gnn = dict(ZOO["HEAT4"], in_dim=64)
+    gnn = load_config(HEAT4_BRCA)["GNN"]
     model = parse_lattice_twin(gnn)
     variables = convert.to_flax_variables(convert.init_flax_like_(model, 0))
     on_card = SlidePredictor({"GNN": gnn}, variables=variables, device=cuda)
     on_cpu = SlidePredictor({"GNN": gnn}, variables=variables, device="cpu")
+    on_card.enable_pixels(hovernet_config={"batch_size": 128, "mode": "fast"})
     rng = np.random.RandomState(5)
-    slides = [(rng.randn(n, 64).astype(np.float32),
+    slides = [(rng.randn(n, 1024).astype(np.float32),
                rng.randint(0, 6, n).astype(np.int32))
-              for n in (300, 280, 700, 650, 41)]
-    results = [None] * len(slides)
+              for n in (2048, 1900, 700, 650, 41)]
+    px = [rng.randint(0, 256, (300, 256, 256, 3)).astype(np.uint8)
+          for _ in range(2)]
+    px_alone = [on_card.predict_many_pixels([p])[0] for p in px]
+    results = [None] * (len(slides) + len(px))
     server = BatchingServer(on_card, max_batch=4, max_wait_ms=500.0)
     server.start()
-    try:
-        def post(i):
-            buf = io.BytesIO()
-            np.savez(buf, features=slides[i][0], node_types=slides[i][1])
-            req = urllib.request.Request(
-                f"http://127.0.0.1:{server.port}/predict",
-                data=buf.getvalue())
-            with urllib.request.urlopen(req, timeout=120) as r:
-                results[i] = json.loads(r.read())
 
-        before = kknn.knn_l2_fused.launches
+    def post(i):
+        buf = io.BytesIO()
+        if i < len(slides):
+            np.savez(buf, features=slides[i][0], node_types=slides[i][1])
+        else:
+            np.savez(buf, pixels=px[i - len(slides)])
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{server.port}/predict", data=buf.getvalue())
+        with urllib.request.urlopen(req, timeout=300) as r:
+            results[i] = json.loads(r.read())
+
+    def post_all(ids):
         threads = [threading.Thread(target=post, args=(i,), daemon=True)
-                   for i in range(len(slides))]
+                   for i in ids]
         for t in threads:
             t.start()
         for t in threads:
-            t.join(timeout=120)
+            t.join(timeout=300)
             assert not t.is_alive()
+
+    def get(path):
         with urllib.request.urlopen(
-                f"http://127.0.0.1:{server.port}/stats", timeout=30) as r:
-            stats = json.loads(r.read())
-        with urllib.request.urlopen(
-                f"http://127.0.0.1:{server.port}/healthz", timeout=30) as r:
-            assert json.loads(r.read())["model_version"] is None
+                f"http://127.0.0.1:{server.port}{path}", timeout=30) as r:
+            return json.loads(r.read())
+
+    try:
+        before = kknn.knn_l2_fused.launches
+        post_all(range(len(slides)))
+        stats = get("/stats")
+        assert get("/healthz")["model_version"] is None
+        knn = kknn.knn_l2_fused.launches - before
+        kernels.reset_launch_counts()
+        post_all(range(len(slides), len(results)))
+        px_launches = kernels.launch_counts()
+        px_stats = get("/stats")
     finally:
         server.stop()
     assert stats["requests"] == 5 and stats["errors"] == 0
-    assert kknn.knn_l2_fused.launches - before == 4 * stats["batches"]
+    assert knn == 4 * stats["batches"]
+    assert px_stats["requests"] == 7 and px_stats["errors"] == 0
     for s, r in zip(slides, results):
         np.testing.assert_allclose(r["probs"], on_cpu.predict(*s), atol=1e-4)
+    for r, want in zip(results[len(slides):], px_alone):
+        np.testing.assert_allclose(r["probs"], want, atol=1e-4)
+    # three chunks of 128 for each 300-patch request; each group's graphs,
+    # padded to max_batch by repeating features
+    assert px_launches == _counts(
+        knn_l2_fused=4 * (px_stats["batches"] - stats["batches"]),
+        dense_layer_fused=6 * 58, transition_fused=6 * 3, bn_act=6 * 76)
 
 
 def _seeded_tree(module, seed):
@@ -1389,27 +1541,48 @@ def test_gnn_explainer_steps_on_card_match_cpu(cuda):
         np.testing.assert_allclose(a, b, atol=1e-4, rtol=0)
 
 
-@pytest.mark.parametrize("kind", ["abmil", "dsmil", "gtn"])
-def test_mil_step_on_card_matches_cpu(cuda, kind):
-    """One train_mil step of each bag model on the card against the CPU:
-    loss to 1e-5 relative, gradients by assert_grads_match."""
+def _mil_step_matches(cuda, kind, d, n, cap, hidden, clusters, seeds,
+                      ties=False):
+    """One train_mil step of `kind` on a bag of n x d padded to `cap`
+    (`seeds`: the bag's and the init's), on the card against the CPU:
+    loss to 1e-5 relative, gradients by assert_grads_match. With `ties`,
+    a card whose loss misses the CPU's f32 loss is held against the
+    CPU's float64 step instead, at the same tolerances, for the loss and
+    the gradients alike: a model that makes discrete choices (H2MIL's
+    IHPool: fitness order statistics, nearest centres) can meet an input
+    within f32 rounding of a tie, which the card's atomics decide one way
+    or the other from run to run; a card that matches neither fails. gtn
+    is
+    GraphTransformer(2, d, hidden, clusters) over the bag's grid
+    adjacency; h2mil is H2MIL(d, hidden) with dropout off (both devices
+    compute one function) on the bag's synthetic tree (cell 4), and
+    IHPool's weights, which no gradient reaches, must be exactly 0 on the
+    card."""
     from wsi_hgnn_tpu_torch import train_mil
     from wsi_hgnn_tpu_torch.models import mil
+    from wsi_hgnn_tpu_torch.models.mil.h2mil import (build_tree_graph,
+                                                     tree_to_torch)
 
-    rng = np.random.RandomState(5)
-    d, n, cap = 64, 300, 320
-    feats, mask = mil.pad_bag(rng.randn(n, d).astype(np.float32),
-                              capacity=cap)
-    if kind == "gtn":
-        model = mil.GraphTransformer(2, d, 32, 16)
+    bag = np.random.RandomState(seeds[0]).randn(n, d).astype(np.float32)
+    feats, mask = mil.pad_bag(bag, capacity=cap)
+    if kind == "h2mil":
+        tree = build_tree_graph(bag, train_mil.grid_coords(n), cell=4)
+        model = mil.H2MIL(d, hidden, 2, dropout=0.0)
+    elif kind == "gtn":
+        model = mil.GraphTransformer(2, d, hidden, clusters)
         edges = mil.spatial_adjacency(
             [tuple(c) for c in train_mil.grid_coords(n)])
     else:
         model = (mil.ABMIL if kind == "abmil" else mil.DSMIL)(2, d)
-    convert.init_flax_like_(model, seed=1)
+    convert.init_flax_like_(model, seed=seeds[1])
     base64 = copy.deepcopy(model).double()
 
     def step(m, dev, dtype=torch.float32):
+        if kind == "h2mil":
+            opt = torch.optim.Adam(m.parameters(), lr=2e-4,
+                                   weight_decay=5e-4)
+            return train_mil.h2mil_train_step(
+                m, opt, tree_to_torch(tree, dev, dtype), 1)
         f = torch.from_numpy(feats).to(dev, dtype)
         msk = torch.from_numpy(mask).to(dev)
         if kind == "gtn":
@@ -1423,49 +1596,45 @@ def test_mil_step_on_card_matches_cpu(cuda, kind):
 
     def run64(m, dev):
         with gradcheck.float64_default():
-            step(m, dev, torch.float64)
+            return step(m, dev, torch.float64)
 
     m_cpu, m_dev = copy.deepcopy(model), copy.deepcopy(model).to(cuda)
     l_cpu = float(step(m_cpu, torch.device("cpu")))
     l_dev = float(step(m_dev, cuda))
+    if ties and abs(l_dev - l_cpu) > 1e-5 * abs(l_cpu):
+        m_cpu = copy.deepcopy(base64)
+        l_cpu = float(run64(m_cpu, torch.device("cpu")))
     assert abs(l_dev - l_cpu) <= 1e-5 * abs(l_cpu)
+    if kind == "h2mil":
+        assert not m_dev.pool_1.weight_1.grad.any()
     assert_grads_match(m_cpu.named_parameters(), m_dev.named_parameters(),
                        run64, base64, cuda)
+
+
+@pytest.mark.parametrize("kind", ["abmil", "dsmil", "gtn"])
+def test_mil_step_on_card_matches_cpu(cuda, kind):
+    """One train_mil step of each bag model (d 64, 300 instances; gtn
+    hidden 32, 16 clusters) on the card against the CPU."""
+    _mil_step_matches(cuda, kind, 64, 300, 320, 32, 16, seeds=(5, 1))
 
 
 def test_h2mil_step_on_card_matches_cpu(cuda):
-    """One H2MIL train_mil step (dropout off, so both devices compute one
-    function) on the card against the CPU: loss to 1e-5 relative,
-    gradients by assert_grads_match; IHPool's weights, which no gradient
-    reaches, exactly 0 on both."""
-    from wsi_hgnn_tpu_torch import train_mil
-    from wsi_hgnn_tpu_torch.models.mil import H2MIL
-    from wsi_hgnn_tpu_torch.models.mil.h2mil import (build_tree_graph,
-                                                     tree_to_torch)
+    """One H2MIL train_mil step (d 64, hidden 32, 300 instances) on the
+    card against the CPU."""
+    _mil_step_matches(cuda, "h2mil", 64, 300, 300, 32, None, seeds=(6, 2))
 
-    rng = np.random.RandomState(6)
-    d, n = 64, 300
-    tree = build_tree_graph(rng.randn(n, d).astype(np.float32),
-                            train_mil.grid_coords(n), cell=4)
-    model = convert.init_flax_like_(H2MIL(d, 32, 2, dropout=0.0), seed=2)
-    base64 = copy.deepcopy(model).double()
 
-    def step(m, dev, dtype=torch.float32):
-        opt = torch.optim.Adam(m.parameters(), lr=2e-4, weight_decay=5e-4)
-        return train_mil.h2mil_train_step(m, opt,
-                                          tree_to_torch(tree, dev, dtype), 1)
+@pytest.mark.parametrize("kind", ["abmil", "dsmil", "gtn", "h2mil"])
+def test_mil_step_on_card_matches_cpu_at_cohort_width(cuda, kind):
+    """The same step on a bag of 1600 x 1024 (the largest bag of a cohort
+    of 800-1600 KimiaNet features) at train_mil's default widths (gtn
+    hidden 64, 100 clusters, capacity bucket_size(1600, base=64); H2MIL
+    hidden 64), with the float64 side of an f32 tie accepted."""
+    from wsi_hgnn_tpu_torch.graph.typed_graph import bucket_size
 
-    def run64(m, dev):
-        with gradcheck.float64_default():
-            step(m, dev, torch.float64)
-
-    m_cpu, m_dev = copy.deepcopy(model), copy.deepcopy(model).to(cuda)
-    l_cpu = float(step(m_cpu, torch.device("cpu")))
-    l_dev = float(step(m_dev, cuda))
-    assert abs(l_dev - l_cpu) <= 1e-5 * abs(l_cpu)
-    assert not m_dev.pool_1.weight_1.grad.any()
-    assert_grads_match(m_cpu.named_parameters(), m_dev.named_parameters(),
-                       run64, base64, cuda)
+    cap = bucket_size(1600, base=64) if kind == "gtn" else 1600
+    _mil_step_matches(cuda, kind, 1024, 1600, cap, 64, 100, seeds=(7, 3),
+                      ties=True)
 
 
 def test_simclr_step_on_card_matches_cpu(cuda):
@@ -1536,13 +1705,15 @@ def test_fused_kimianet_f32_at_simclr_batch_matches_module(cuda):
 def test_graphcam_on_card_matches_cpu(cuda):
     """GraphCAM of every class on the card against the CPU: within 1e-4
     relative plus an atol of 3x the spread of randomly rounded float64
-    runs (gradcheck.output_spread), as the explanation scores are judged;
-    a sign-flipped cam fails that check."""
+    runs (gradcheck.output_spread), as the explanation scores are judged,
+    on a 1600-patch bag of 1024-d features (GraphTransformer hidden 64,
+    100 clusters, train_mil's defaults); a sign-flipped and an all-zero
+    cam fail that check."""
     from wsi_hgnn_tpu_torch import train_mil
     from wsi_hgnn_tpu_torch.models import mil
 
     rng = np.random.RandomState(7)
-    d, n, cap = 64, 300, 320
+    d, n, cap = 1024, 1600, 2048     # a 1600-patch bag of KimiaNet features
     model = convert.init_flax_like_(mil.GraphTransformer(2, d, 64, 100),
                                     seed=4).eval()
     feats, mask = mil.pad_bag(rng.randn(n, d).astype(np.float32),
@@ -1567,7 +1738,9 @@ def test_graphcam_on_card_matches_cpu(cuda):
                         torch.float64), want64)
         atol = 3.0 * spread
         assert np.all(np.abs(got - want) <= atol + 1e-4 * np.abs(want))
-        assert not np.all(np.abs(-got - want) <= atol + 1e-4 * np.abs(want))
+        for wrong in (-got, np.zeros_like(got)):
+            assert not np.all(np.abs(wrong - want)
+                              <= atol + 1e-4 * np.abs(want))
 
 
 def test_nested_bag_encoder_launch_counts(cuda, tmp_path):
@@ -1616,3 +1789,631 @@ def test_nested_bag_encoder_launch_counts(cuda, tmp_path):
     n2 = int((t.node_type[t.node_mask] == 2).sum())
     np.testing.assert_array_equal(t.feats[int(t.node_mask.sum()) - n2:
                                           int(t.node_mask.sum())], direct)
+
+
+# ---------------------------------------------------------------------------
+# graph construction, tiling, explanation, the MIL tools and several
+# devices, end to end on the card
+# ---------------------------------------------------------------------------
+CONSTRUCT_DIR = ROOT / "configs/GraphConstruction"
+HEAT4_BRCA = ROOT / "configs/BRCA/HEAT4_kimia_classification.yml"
+# a chunk of KimiaNet features with HoVer-Net typing inline
+PER_CHUNK = {"dense_layer_fused": 58, "transition_fused": 3, "bn_act": 76}
+
+
+def _jpeg(path, rng, size=256, block=32):
+    """A seeded JPEG of size/block x size/block blocks of colour."""
+    from PIL import Image
+
+    low = rng.randint(0, 256, (size // block, size // block, 3))
+    Image.fromarray(np.kron(low, np.ones((block, block, 1))).astype(
+        np.uint8)).save(path, quality=90)
+
+
+def _tie_distance(feat, src, dst, sim, het, ulps=64):
+    """A slide's card graph (src, dst, sim as written) against `het`,
+    built from the same features on the CPU: (the largest distance of a
+    swapped neighbour from its row's k-th distance, over `ulps` f32 ulps
+    of |q|^2 + |c|^2, which must be <= 1: lists differ only where
+    neighbours tie within f32 rounding; sim max|err| over the edges both
+    hold)."""
+    e = int(np.asarray(het.edge_mask).sum())
+    c_src, c_dst, c_sim = (np.asarray(a)[:e] for a in (het.src, het.dst,
+                                                        het.sim))
+    f = feat.astype(np.float64)
+    sq = (f * f).sum(1)
+    worst = sim_err = 0.0
+    for i in np.unique(np.concatenate([src, c_src])):
+        mine, theirs = dst[src == i], c_dst[c_src == i]
+        a, b = dict(zip(mine, sim[src == i])), dict(zip(theirs,
+                                                         c_sim[c_src == i]))
+        for j in np.intersect1d(mine, theirs):
+            sim_err = max(sim_err, abs(a[j] - b[j]))
+        swapped = np.setxor1d(mine, theirs)
+        if len(swapped):
+            both = np.union1d(mine, theirs)
+            d2 = sq[i] + sq[both] - 2.0 * f[both] @ f[i]
+            kth = max(d2[np.isin(both, mine)].max(),
+                      d2[np.isin(both, theirs)].max())
+            tol = ulps * 2.0 ** -24 * (sq[i] + sq[swapped])
+            worst = max(worst, float(
+                (np.abs(d2[np.isin(both, swapped)] - kth) / tol).max()))
+    return worst, sim_err
+
+
+def test_construct_all_on_card_from_reference_weight_files(cuda, tmp_path):
+    """BRCA_HovernetKimia_graph_constructor.yml, paths redirected, on the
+    card over three seeded JPEG slides of 300-1000 patches, KimiaNet and HoVer-Net read from
+    files under the reference's key names: one KNN a slide and the
+    DenseNet and bn_act launches of every 128-patch chunk; slide 0's
+    features within 1e-4 relative L2 of the encoder given the same
+    weights as flax variables, node types equal; its graph the CPU's but
+    where neighbours tie within f32 rounding, sims to 1e-5; `knn_impl:
+    approx` writes every array the pallas build wrote; a GNNTrainer epoch
+    reads the written files at the config's HEAT4 widths."""
+    from wsi_hgnn_tpu_torch.graph.build import build_graph
+    from wsi_hgnn_tpu_torch.models.featurizers import (HoVerNet, KimiaNet,
+                                                       make_cnn_encoder)
+    from wsi_hgnn_tpu_torch.models.featurizers import convert as keys
+    from wsi_hgnn_tpu_torch.pipeline import (construct_all,
+                                             iter_patch_batches, list_patches)
+
+    sizes, rng = (300, 600, 1000), np.random.RandomState(40)
+    names = [f"TCGA-XX-{9000 + i}-{'11A' if i == 0 else '01Z'}-00-DX1"
+             for i in range(len(sizes))]
+    for i, n in enumerate(sizes):
+        d = tmp_path / "patches" / ("normal" if i == 0 else "tumor") / names[i]
+        d.mkdir(parents=True)
+        for j in range(n):
+            _jpeg(d / f"{j:04d}_0.jpeg", rng)
+    kimia, hover = (_seeded_tree(KimiaNet(), 11),
+                    _seeded_tree(HoVerNet.typing(6, "fast"), 12))
+    torch.save({k: torch.from_numpy(v) for k, v in
+                keys.kimianet_state_dict(kimia).items()}, tmp_path / "k.pth")
+    torch.save({"desc": {k: torch.from_numpy(v) for k, v in
+                         keys.hovernet_state_dict(hover).items()}},
+               tmp_path / "h.tar")
+    cfg = load_config(CONSTRUCT_DIR / "BRCA_HovernetKimia_graph_constructor.yml")
+    gcfg, hcfg, kcfg = (cfg["graph_constructor"], cfg["hovernet_config"],
+                        cfg["kimianet_config"])
+    assert (gcfg["encoder_name"], gcfg["knn_impl"], gcfg["radius"],
+            gcfg["node_type_dir"], hcfg["batch_size"]) == (
+        "kimia", "pallas", 9, None, 128)
+    gcfg.update(patch_path=str(tmp_path / "patches") + "/",
+                out_dir=str(tmp_path / "graphs"))
+    hcfg["hovernet_model_path"] = str(tmp_path / "h.tar")
+    kcfg["kimianet_model_path"] = str(tmp_path / "k.pth")
+    kernels.reset_launch_counts()
+    assert construct_all(gcfg, hcfg, kcfg, device=cuda) == len(sizes)
+    chunks = sum(-(-n // 128) for n in sizes)
+    assert kernels.launch_counts() == _counts(knn_l2_fused=len(sizes), **{
+        k: v * chunks for k, v in PER_CHUNK.items()})
+
+    out = tmp_path / "graphs"
+    with np.load(out / "heterogeneous" / f"{names[0]}.npz") as z:
+        feat, src, dst, sim = z["feat"], z["src"], z["dst"], z["sim"]
+    types = np.load(out / "node_types" / f"{names[0]}.npy")
+    enc = make_cnn_encoder("kimia", {"feature_dim": 1024, "n_node_type": 6},
+                           hcfg, kcfg, with_typing=True, pad_batch_to=128,
+                           device=cuda, kimia_variables=kimia,
+                           hover_variables=hover)
+    got = [enc(b) for b in iter_patch_batches(list_patches(
+        tmp_path / "patches" / "normal" / names[0]), 128, out_dtype="uint8")]
+    assert _rel_l2(torch.from_numpy(np.concatenate([g[0] for g in got])),
+                   torch.from_numpy(feat)) <= 1e-4
+    np.testing.assert_array_equal(np.concatenate([g[1] for g in got]), types)
+    worst, sim_err = _tie_distance(feat, src, dst, sim, build_graph(
+        feat, types, 9, 6, knn_impl="pallas", device="cpu")[0])
+    assert worst <= 1.0 and sim_err <= 1e-5
+
+    approx = tmp_path / "approx_patches" / "normal"
+    approx.mkdir(parents=True)
+    (approx / names[0]).symlink_to(tmp_path / "patches" / "normal" / names[0])
+    acfg = dict(gcfg, knn_impl="approx", patch_path=str(approx.parent) + "/",
+                out_dir=str(tmp_path / "approx"))
+    kernels.reset_launch_counts()
+    assert construct_all(acfg, hcfg, kcfg, device=cuda) == 1
+    assert kernels.launch_counts() == _counts(knn_l2_fused=1, **{
+        k: v * -(-sizes[0] // 128) for k, v in PER_CHUNK.items()})
+    for kind in ("heterogeneous", "homogeneous"):
+        with np.load(out / kind / f"{names[0]}.npz") as a, np.load(
+                tmp_path / "approx" / kind / f"{names[0]}.npz") as b:
+            assert sorted(a.files) == sorted(b.files)
+            for key in a.files:
+                np.testing.assert_array_equal(a[key], b[key], err_msg=key)
+    np.testing.assert_array_equal(np.load(
+        tmp_path / "approx" / "node_types" / f"{names[0]}.npy"), types)
+
+    tcfg = load_config(HEAT4_BRCA)
+    listing = tmp_path / "constructed.txt"
+    listing.write_text("".join(f"{out / 'heterogeneous' / n}.npz\n"
+                               for n in names))
+    (tmp_path / "normal.txt").write_text(names[0][:16] + "\n")
+    tcfg["datasets"].update(train_path=str(listing), valid_path=str(listing),
+                            eval_path=str(listing),
+                            normal_path=str(tmp_path / "normal.txt"))
+    tcfg["train"]["num_epochs"] = 1
+    tcfg["checkpoint"]["path"] = str(tmp_path / "ckpt")
+    stats = GNNTrainer(tcfg, seed=611, device=cuda).train()
+    assert stats["Epoch"] == 1 and np.isfinite(stats["Train Loss: "])
+
+
+def test_make_hover_typing_equals_the_device_typing_on_card(cuda):
+    """make_hover_typing (numpy in and out) on the card: int32 node types
+    equal to make_hover_typing_device's on the same seeded patches."""
+    from wsi_hgnn_tpu_torch.models.featurizers import (
+        HoVerNet, make_hover_typing, make_hover_typing_device)
+
+    hcfg, hover = {"mode": "fast"}, _seeded_tree(HoVerNet.typing(6, "fast"),
+                                                 12)
+    px = np.random.RandomState(60).randint(0, 256, (8, 256, 256, 3)
+                                           ).astype(np.uint8)
+    got = make_hover_typing(hcfg, 6, cuda, hover)(px)
+    with torch.inference_mode():
+        want = make_hover_typing_device(hcfg, 6, cuda, hover, 0)(
+            torch.from_numpy(px).to(cuda).float() / 255.0)
+    assert got.dtype == np.int32
+    np.testing.assert_array_equal(got, want.cpu().numpy())
+
+
+def test_profiling_trace_holds_the_knn_kernel_and_its_span(cuda, tmp_path):
+    """profiling.trace around one KNN inside annotate('knn') and a device
+    span 'knn': the trace file holds the KNN kernel among its device
+    events and the annotation; the spans file beside it the span, once,
+    with its card time and the card's idle time inside it."""
+    import json
+
+    from wsi_hgnn_tpu_torch import profiling
+    from wsi_hgnn_tpu_torch.ops.knn import knn_lookup
+
+    g = torch.randn(2048, 1024, device=cuda)
+    with profiling.trace(str(tmp_path)):
+        with profiling.annotate("knn"), profiling.span("knn", device=cuda):
+            knn_lookup(g, 8)
+            torch.cuda.synchronize()
+    files = sorted(tmp_path.glob("*.pt.trace.json"))
+    assert len(files) == 1 and len(list(tmp_path.iterdir())) == 2
+    events = json.loads(files[0].read_text())["traceEvents"]
+    device = sorted({e["name"] for e in events if e.get("cat") == "kernel"})
+    assert any("knn_l2" in name for name in device), device
+    assert any(e.get("name") == "knn" for e in events)
+    span = json.loads(Path(str(files[0]) + ".spans.json").read_text()
+                      )["spans"]["knn"]
+    assert span["count"] == 1 and span["device_s"] > 0
+    assert 0 <= span["card_idle_s"] <= span["host_s"]
+
+
+def _tissue_slide(path, w, h, seed=70):
+    """A seeded slide image: white, with three overlapping ellipses of
+    8 x 8-pixel colour blocks as tissue."""
+    from PIL import Image
+
+    rng = np.random.RandomState(seed)
+    img = np.kron(rng.randint(40, 230, (h // 8, w // 8, 3)),
+                  np.ones((8, 8, 1))).astype(np.uint8)
+    yy, xx = np.mgrid[0:h, 0:w]
+    tissue = np.zeros((h, w), bool)
+    for cx, cy, rx, ry in ((0.33, 0.47, 0.34, 0.44), (0.69, 0.53, 0.31, 0.42),
+                           (0.50, 0.22, 0.24, 0.18)):
+        tissue |= (((xx - cx * w) / (rx * w)) ** 2
+                   + ((yy - cy * h) / (ry * h)) ** 2) < 1
+    img[~tissue] = 255
+    path.parent.mkdir(parents=True, exist_ok=True)
+    Image.fromarray(img).save(path, quality=90)
+
+
+@pytest.mark.parametrize("config", [
+    "COAD_Hovernet_graph_constructor.yml",
+    "BRCA_HovernetEfficient_graph_constructor.yml"])
+def test_tiled_slide_constructs_on_card(cuda, tmp_path, monkeypatch,
+                                        config):
+    """A seeded 8192 x 6144 slide image tiled by `get_patches` (PIL,
+    spawned workers), then built on the card with the config's encoder:
+    'hover' (HoVer-Net with fc1 at 1024, seeded) or EfficientNet-B4 with
+    inline typing, both from seeded weight files under the reference's
+    names. Background tiles are dropped; one slide is written, its graph
+    through the KNN kernel, with 1024-d finite features and k out-edges
+    a node; the written bf16 features within 0.1 relative L2 of the
+    CPU's f32 encoder on two of its patches."""
+    from wsi_hgnn_tpu_torch import get_patches
+    from wsi_hgnn_tpu_torch.models.featurizers import (
+        EfficientNet, HoVerNet, efficientnet_apply, hovernet_full_apply,
+        load_cnn_variables, make_hovernet)
+    from wsi_hgnn_tpu_torch.models.featurizers import convert as keys
+    from wsi_hgnn_tpu_torch.pipeline import (construct_all,
+                                             iter_patch_batches, list_patches)
+
+    slide = "TCGA-SY-0001-01Z-00-DX1"
+    _tissue_slide(tmp_path / "data" / "SYN" / "tumor" / f"{slide}.jpeg",
+                  8192, 6144)
+    monkeypatch.chdir(tmp_path)
+    out_base = get_patches.main(["-d", "SYN", "-v", "jpeg", "-b", "40", "-o",
+                                 "40", "-j", "2", "-m", "0"])
+    paths = list_patches(tmp_path / out_base / "tumor" / slide)
+    assert 0 < len(paths) < 32 * 24
+    cfg = load_config(CONSTRUCT_DIR / config)
+    gcfg, hcfg, kcfg = (cfg["graph_constructor"], cfg["hovernet_config"],
+                        cfg["kimianet_config"])
+    name = gcfg["encoder_name"]
+    assert (gcfg["knn_impl"], gcfg["radius"], gcfg["feature_dim"],
+            hcfg["batch_size"]) == ("pallas", 9, 1024, 128)
+    gcfg.update(patch_path=str(tmp_path / out_base) + "/",
+                out_dir=str(tmp_path / "graphs"))
+    if name == "hover":
+        hcfg["hovernet_model_path"] = str(tmp_path / "absent.tar")
+    else:
+        assert name == "efficientnet-b4"
+        torch.save({"desc": {k: torch.from_numpy(v) for k, v in
+                             keys.hovernet_state_dict(_seeded_tree(
+                                 HoVerNet.typing(6, "fast"), 31)).items()}},
+                   tmp_path / "typing.tar")
+        torch.save({k: torch.from_numpy(v) for k, v in
+                    keys.efficientnet_state_dict(_seeded_tree(
+                        EfficientNet.from_name(name, 1024), 32)).items()},
+                   tmp_path / "eff.pth")
+        hcfg["hovernet_model_path"] = str(tmp_path / "typing.tar")
+        gcfg["efficientnet_model_path"] = str(tmp_path / "eff.pth")
+    kernels.reset_launch_counts()
+    assert construct_all(gcfg, hcfg, kcfg, device=cuda, verbose=False) == 1
+    assert kernels.launch_counts()["knn_l2_fused"] >= 1
+    with np.load(tmp_path / "graphs" / "heterogeneous" / f"{slide}.npz") as z:
+        feat, n_edges = z["feat"], len(z["src"])
+    assert feat.shape == (len(paths), 1024) and np.isfinite(feat).all()
+    assert n_edges == len(paths) * 8
+
+    x = torch.from_numpy(next(iter_patch_batches(
+        paths[:2], 2, out_dtype="uint8"))).float() / 255.0
+    with torch.inference_mode():
+        if name == "hover":
+            want = hovernet_full_apply(make_hovernet(
+                hcfg, 6, cuda, feat_dim=1024).cpu(), x)[0]
+        else:
+            model = EfficientNet.from_name(name, 1024)
+            convert.load_flax_variables(model, load_cnn_variables(
+                "efficientnet", model, gcfg["efficientnet_model_path"], 0))
+            want = efficientnet_apply(model.eval(), x)
+    assert _rel_l2(torch.from_numpy(feat[:2]), want) <= 0.1
+
+
+def _auc_allowance(labels, scores, err):
+    """The AUC change that score errors up to `err` can make: the share
+    of (tumour, other) patch pairs whose scores lie within 2 err."""
+    labels, scores = np.asarray(labels), np.asarray(scores)
+    pos, neg = scores[labels == 1], scores[labels == 0]
+    return float((np.abs(pos[:, None] - neg[None, :]) <= 2 * err).mean())
+
+
+def test_graph_explain_on_card_matches_cpu(cuda, tmp_path):
+    """ExplainGraph.eval (what `main.py -mode graph_explain` runs) on the
+    card over a Camelyon16-style layout: a 12 x 8-tile slide whose
+    1024-d standardised features' graph the KNN kernel built, an
+    annotation ellipse, HEAT4 at configs/BRCA/HEAT4_kimia_classification.yml's
+    width from a version-1 checkpoint, its output layer scaled so the
+    tumour logit trails by 3. One finite AUC, both heatmaps written, a
+    score a patch; the scores within 1e-4 relative L2 of the CPU's and
+    the AUCs equal but for the patch pairs the largest score difference
+    can swap; a second explanation on the card gives the same AUC but
+    for the pairs two card runs can swap. On a seeded 1024-node slide
+    whose graphs the KNN kernel built, HetGemExplainer on that HEAT4 and
+    GemExplainer on the BRCA GCN give a finite score a node."""
+    import copy
+
+    from PIL import Image
+
+    from wsi_hgnn_tpu_torch.data import load_graph_npz
+    from wsi_hgnn_tpu_torch.explain import (ExplainGraph, GemExplainer,
+                                            HetGemExplainer)
+    from wsi_hgnn_tpu_torch.graph.build import build_graph
+    from wsi_hgnn_tpu_torch.graph.typed_graph import to_homogeneous
+    from wsi_hgnn_tpu_torch.train.checkpoint import CheckpointManager
+    from wsi_hgnn_tpu_torch.train.metrics import binary_auc_from_scores
+
+    cols, rows, slide = 12, 8, "test_001"
+    n, rng = cols * rows, np.random.RandomState(31)
+    for d in ("patches/" + slide, "wsi", "annotations", "plots"):
+        (tmp_path / d).mkdir(parents=True)
+    for c in range(cols):
+        for r in range(rows):
+            (tmp_path / "patches" / slide / f"{c}_{r}.jpeg").touch()
+    w, h = 256 * cols, 256 * rows
+    Image.new("RGB", (w, h), (200, 120, 180)).save(
+        tmp_path / "wsi" / f"{slide}.png")
+    t = np.linspace(0.0, 2 * np.pi, 64, endpoint=False)
+    (tmp_path / "annotations" / f"{slide}.xml").write_text(
+        '<?xml version="1.0"?><ASAP_Annotations><Annotations><Annotation '
+        'Name="Tumor" Type="Polygon"><Coordinates>' + "".join(
+            f'<Coordinate Order="{i}" X="{(0.4 + 0.25 * np.cos(a)) * w:.2f}" '
+            f'Y="{(0.45 + 0.3 * np.sin(a)) * h:.2f}"/>'
+            for i, a in enumerate(t))
+        + "</Coordinates></Annotation></Annotations></ASAP_Annotations>")
+    (tmp_path / "reference.csv").write_text(f"NAME,LABEL\n{slide},Tumor\n")
+    feat = rng.randn(n, 1024).astype(np.float32)
+    types = rng.randint(0, 6, n)
+    kernels.reset_launch_counts()
+    het, _ = build_graph(feat, types, 9, 6, knn_impl="pallas", device=cuda)
+    assert kernels.launch_counts()["knn_l2_fused"] == 1
+    e = int(np.asarray(het.edge_mask).sum())
+    save_graph_npz(tmp_path / f"{slide}.npz", feat, np.asarray(het.src)[:e],
+                   np.asarray(het.dst)[:e], node_type=types,
+                   esign=np.asarray(het.esign)[:e],
+                   sim=np.asarray(het.sim)[:e], n_node_types=6)
+    (tmp_path / "eval.txt").write_text(f"{tmp_path / slide}.npz\n")
+    cfg = load_config(HEAT4_BRCA)
+    assert cfg["eval"]["explainer_name"] == "GemExplainer"
+    cfg["datasets"].update(
+        dataset="C16", patches_path=str(tmp_path / "patches") + "/",
+        wsi_path=str(tmp_path / "wsi") + "/",
+        eval_path=str(tmp_path / "eval.txt"),
+        reference_csv=str(tmp_path / "reference.csv"))
+    cfg["checkpoint"]["path"] = str(tmp_path / "ckpt")
+    cfg["eval"].update(explain_path=str(tmp_path / "plots") + "/",
+                       annotation_path=str(tmp_path / "annotations") + "/",
+                       patch_size=128)
+    model, _ = parse_gnn_model(cfg["GNN"])
+    convert.init_flax_like_(model, 9).eval()
+    g = load_graph_npz(tmp_path / f"{slide}.npz").to_torch(
+        torch.device("cpu"))
+    with torch.no_grad():
+        z = model(g.replace(esign=torch.ones_like(g.esign)))[0]
+        model.head.weight.mul_(-3.0 / float(z[1] - z[0]))
+        model.head.bias.mul_(-3.0 / float(z[1] - z[0]))
+    variables = convert.to_flax_variables(model)
+    CheckpointManager(cfg["checkpoint"]["path"]).write_new_version(
+        cfg, {"params": variables["params"], "batch_stats": {}}, {"Epoch": 1})
+    cpu_cfg = copy.deepcopy(cfg)
+    cpu_cfg["GNN"]["typed_impl"] = "ragged"    # the same function
+    cpu_cfg["eval"]["explain_path"] = str(tmp_path / "plots_cpu") + "/"
+    eg, cpu = ExplainGraph(cfg, device=cuda), ExplainGraph(cpu_cfg,
+                                                           device="cpu")
+    auc, auc_cpu = eg.eval(), cpu.eval()
+    s_dev, s_cpu = eg.last_scores[slide], cpu.last_scores[slide]
+    assert len(auc) == 1 and np.isfinite(auc[0])
+    for ext in (".png", ".jpeg"):
+        assert (tmp_path / "plots" / f"{slide}{ext}").stat().st_size
+    coords = eg.get_patch_coords(slide)
+    labels, _ = eg.get_ground_truths(eg.eval_data.xml_paths[0], coords)
+    assert len(coords) == n == len(s_dev) == len(s_cpu)
+    assert np.isfinite(s_dev).all()
+    assert 0 < sum(labels) < n
+    assert np.linalg.norm(s_dev - s_cpu) <= 1e-4 * np.linalg.norm(s_cpu)
+    assert abs(auc[0] - auc_cpu[0]) <= _auc_allowance(
+        labels, s_cpu, np.abs(s_dev - s_cpu).max())
+    graph, _, label = eg.eval_data[0]
+    again = eg.explain_one(graph.to_torch(cuda), label)
+    assert abs(binary_auc_from_scores(np.asarray(labels), again) - auc[0]) \
+        <= _auc_allowance(labels, s_dev, np.abs(again - s_dev).max())
+
+    gcn, _ = parse_gnn_model(load_config(
+        ROOT / "configs/BRCA/GCN_kimia_classification.yml")["GNN"])
+    gcn = convert.init_flax_like_(gcn, 4).to(cuda).eval()
+    big = [torch.from_numpy(a).to(cuda) for a in (
+        rng.randn(1, 1024, 1024).astype(np.float32),
+        rng.randint(0, 6, (1, 1024)), np.ones((1, 1024), bool))]
+    typed = build_batch_device(*big, 9, 6)
+    homo = to_homogeneous(build_batch_device(*big, 9, 6,
+                                             add_self_loops=True))
+    assert kernels.launch_counts()["knn_l2_fused"] == 3
+    for scores in (HetGemExplainer(typed, eg._model_fn, 1).flat_scores(),
+                   GemExplainer(homo, lambda x: gcn(x), 1).explain_node()):
+        assert len(scores) == 1024 and np.isfinite(scores).all()
+
+
+@pytest.mark.parametrize("kind,flags", [
+    ("abmil", []), ("dsmil", ["--remix-mode", "cov", "--num-prototypes", "1"]),
+    ("gtn", ["--hidden", "64", "--clusters", "100"]), ("h2mil", [])])
+def test_train_mil_folds_on_card(cuda, tmp_path, kind, flags):
+    """`train_mil` on the card, 2 folds x 2 epochs over 12 seeded bags of
+    800-1600 x 1024 (6 a class; gtn hidden 64 and 100 clusters, H2MIL at
+    its defaults): every bag and class read, finite fold summaries, and
+    no kernel launched (no bag model runs the KNN or a CNN)."""
+    from wsi_hgnn_tpu_torch import train_mil
+
+    rng = np.random.RandomState(3)
+    rows = ["name,label"]
+    for i in range(12):
+        n = int(rng.randint(800, 1601))
+        np.savez(tmp_path / f"bag{i}.npz", feat=(
+            rng.randn(n, 1024) + 0.5 * (i % 2)).astype(np.float32))
+        rows.append(f"bag{i},{i % 2}")
+    (tmp_path / "labels.csv").write_text("\n".join(rows) + "\n")
+    bags, labels, _, _ = train_mil.load_bags(str(tmp_path),
+                                             str(tmp_path / "labels.csv"))
+    assert len(bags) == 12 and np.bincount(labels).tolist() == [6, 6]
+    kernels.reset_launch_counts()
+    summary = train_mil.main(["--model", kind, "--feats-dir", str(tmp_path),
+                              "--labels", str(tmp_path / "labels.csv"),
+                              "--folds", "2", "--epochs", "2", *flags,
+                              "--device", cuda.type])
+    assert all(np.isfinite(summary[k]) for k in ("acc_mean", "f1_mean",
+                                                 "auc_mean")), summary
+    assert kernels.launch_counts() == _counts()
+
+
+def test_pretrain_simclr_and_extract_on_card(cuda, tmp_path):
+    """tools.pretrain_simclr on the card (KimiaNet frozen) over 320 JPEG
+    patches of 256 x 256 at its defaults (batch 64, so 128 views through
+    the backbone), 2 epochs: 58 dense-layer and 3 transition launches a
+    backbone forward and nothing else; --extract over 6 slide
+    directories of 16 patches, one forward each, writes features within
+    rtol 1e-3, atol 1e-4 of the checkpoint's KimiaNet module on the same
+    images."""
+    from wsi_hgnn_tpu_torch.tools import pretrain_simclr as tool
+
+    rng = np.random.RandomState(90)
+    for j in range(320):
+        (tmp_path / "corpus" / f"c{j % 4}").mkdir(parents=True, exist_ok=True)
+        _jpeg(tmp_path / "corpus" / f"c{j % 4}" / f"{j}.jpeg", rng)
+    for i in range(6):
+        (tmp_path / "slides" / f"sim{i}").mkdir(parents=True)
+        for j in range(16):
+            _jpeg(tmp_path / "slides" / f"sim{i}" / f"{j % 4}_{j // 4}.jpeg",
+                  rng)
+    kernels.reset_launch_counts()
+    best = tool.main(["--patch-dir", str(tmp_path / "corpus"), "--out",
+                      str(tmp_path / "run"), "--epochs", "2",
+                      "--warmup-epochs", "1", "--device", cuda.type])
+    forwards = 2 * ((320 - 64) // 64 + 64 // 64)   # train steps, val batches
+    assert kernels.launch_counts() == _counts(
+        dense_layer_fused=58 * forwards, transition_fused=3 * forwards)
+    kernels.reset_launch_counts()
+    tool.main(["--extract", "--ckpt", best, "--patch-dir",
+               str(tmp_path / "slides"), "--out", str(tmp_path / "feats"),
+               "--device", cuda.type])
+    assert kernels.launch_counts() == _counts(dense_layer_fused=58 * 6,
+                                              transition_fused=3 * 6)
+    model, _ = tool.load_checkpoint(best, cuda)
+    with np.load(tmp_path / "feats" / "sim0.npz") as z:
+        got = torch.from_numpy(z["feat"]).to(cuda)
+    imgs = tool.load_batch(sorted((tmp_path / "slides" / "sim0").glob(
+        "*.jpeg")), 256)
+    with torch.inference_mode():
+        want = model(torch.from_numpy(imgs).to(cuda))[0]
+    torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-4)
+
+
+def _patches(n, seed):
+    return np.random.default_rng(seed).integers(0, 256, (n, 256, 256, 3),
+                                                dtype=np.uint8)
+
+
+def test_sharded_encoders_over_a_repeated_card_match_one_device(cuda):
+    """The 'kimia' (HoVer-Net typing inline) and 'hover' (fc1 width 1024)
+    encoders sharded over (card, card) on a ragged chunk of 130 patches
+    (padded to 256, 128 a device): two parts' DenseNet launches and two
+    HoVer-Net forwards' bn_act launches a part, and the slide graph's one
+    KNN; features within 1e-3 relative L2 and node types equal to the
+    single-device encoder's on the same per-device batches, and within
+    the bf16 bound 0.1 of its answer on the whole chunk; the graph holds
+    every patch."""
+    from wsi_hgnn_tpu_torch.graph.build import build_graph
+    from wsi_hgnn_tpu_torch.models.featurizers import (_pad_rows,
+                                                       make_cnn_encoder)
+
+    px, chunk = _patches(130, 90), 128
+    enc = {(name, sharded): make_cnn_encoder(
+        name, {"feature_dim": 1024, "n_node_type": 6},
+        {"mode": "fast", "batch_size": chunk}, {},
+        with_typing=name == "kimia", pad_batch_to=chunk, device=cuda,
+        devices=[cuda, cuda] if sharded else None)
+        for name in ("kimia", "hover") for sharded in (True, False)}
+    kernels.reset_launch_counts()
+    got = {name: enc[name, True](px) for name in ("kimia", "hover")}
+    het, _ = build_graph(*got["kimia"], radius=9, n_node_types=6,
+                         knn_impl="pallas", device=cuda)
+    assert kernels.launch_counts() == _counts(
+        knn_l2_fused=1, dense_layer_fused=58 * 2, transition_fused=3 * 2,
+        bn_act=2 * 76 * 2)
+    assert int(np.asarray(het.node_mask).sum()) == 130
+    halves = _pad_rows(px, 2 * chunk).reshape(2, chunk, 256, 256, 3)
+    for name in ("kimia", "hover"):
+        parts = [enc[name, False](half) for half in halves]
+        f, t = got[name]
+        assert f.shape == (130, 1024) and np.isfinite(f).all()
+        want = torch.from_numpy(np.concatenate([p[0] for p in parts])[:130])
+        assert float((torch.from_numpy(f) - want).norm()
+                     / want.norm()) <= 1e-3
+        np.testing.assert_array_equal(
+            t, np.concatenate([p[1] for p in parts])[:130])
+        whole = torch.from_numpy(enc[name, False](px)[0])
+        assert float((torch.from_numpy(f) - whole).norm()
+                     / whole.norm()) <= 0.1
+
+
+def test_sharded_steps_on_one_card_match_the_single_card_step(cuda,
+                                                              tmp_path):
+    """Edge sharding and data parallelism with every rank on the one
+    card: a gloo world of 2 runs the edge-sharded HEAT4 and GCN steps at
+    their BRCA configs' widths (each rank half of two 1024-node slides'
+    edge store, in_dim 1024) and the data-parallel GCN step (a slide a
+    rank); an NCCL world of 1 in this process the edge-sharded HEAT4
+    step. The slides' graphs are the KNN kernel's; the ranks' losses
+    agree to 1e-5 relative, and every rank's gradients pass the float64
+    judge against the single-card step."""
+    import socket
+    import types as pytypes
+
+    import torch.distributed as dist
+
+    import port_worlds
+    from wsi_hgnn_tpu_torch.graph.typed_graph import to_homogeneous
+    from wsi_hgnn_tpu_torch.parallel import (local_edges,
+                                             make_big_graph_train_step,
+                                             make_mesh)
+
+    rng, nodes = np.random.RandomState(91), 1024
+    kernels.reset_launch_counts()
+    g = build_batch_device(
+        torch.from_numpy(rng.randn(2, nodes, 1024).astype(np.float32)
+                         ).to(cuda),
+        torch.from_numpy(rng.randint(0, 6, (2, nodes))).to(cuda),
+        torch.ones((2, nodes), dtype=torch.bool, device=cuda), 9, 6)
+    assert kernels.launch_counts() == _counts(knn_l2_fused=2)
+    gnn = {"HEAT4": dict(load_config(BRCA["HEAT4"][0])["GNN"], feat_drop=0.0),
+           "GCN": dict(load_config(BRCA["GCN"][0])["GNN"], feat_drop=0.0,
+                       dropout=0.0)}
+    variables = {"HEAT4": _seeded_tree(parse_gnn_model(gnn["HEAT4"])[0], 5),
+                 "GCN": _seeded_tree(parse_gnn_model(gnn["GCN"])[0], 6)}
+    arrays = port_worlds.device_graph_arrays(g)
+    ranks = port_worlds.run_world(port_worlds.card_steps, 2, tmp_path, {
+        "gnn": gnn, "variables": variables, "labels": np.array([0, 1]),
+        "graph": arrays, "slides": [port_worlds.slide_arrays(arrays, r, nodes)
+                                    for r in range(2)]}, device="cuda")
+    loss_fcn, y = parse_loss({"loss": "CE"}), torch.tensor([0, 1])
+
+    def single_step(name):
+        """The single-card step's model and its float64 runner."""
+        def run(m, dev):
+            gd = port_worlds.host_graph(arrays).to_torch(dev)
+            gd = gd if name == "HEAT4" else to_homogeneous(gd)
+            dtype = next(m.parameters()).dtype
+            gd = gd.replace(feat=gd.feat.to(dtype), sim=gd.sim.to(dtype))
+            m.train()
+            m.zero_grad(set_to_none=False)
+            loss_fcn(m(gd), y.to(dev), torch.ones(2, dtype=dtype,
+                                                  device=dev)).backward()
+
+        def run64(m, dev):
+            with gradcheck.float64_default():
+                run(m, dev)
+
+        ref = port_worlds.port_model(gnn[name], variables[name]).to(cuda)
+        run(ref, cuda)
+        return ref, run64, port_worlds.port_model(
+            gnn[name], variables[name]).double()
+
+    def judged(name, grads):
+        ref, run64, base64 = refs[name]
+        got = [(n, pytypes.SimpleNamespace(grad=torch.as_tensor(grads[n]),
+                                           requires_grad=True))
+               for n, _ in ref.named_parameters()]
+        text, failed, _ = judge_grads(list(ref.named_parameters()), got,
+                                      run64, base64, cuda)
+        assert not failed, (name, failed, text)
+
+    refs = {name: single_step(name) for name in gnn}
+    for key, name in (("HEAT4", "HEAT4"), ("GCN", "GCN"), ("dp", "GCN")):
+        losses = [r[key][0] for r in ranks]
+        assert np.isfinite(losses).all()
+        assert max(losses) - min(losses) <= 1e-5 * abs(losses[0])
+        for r in ranks:
+            judged(name, r[key][1])
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=0, world_size=1, device_id=torch.device(
+                                "cuda", torch.cuda.current_device()))
+    try:
+        mesh = make_mesh(device=cuda)
+        model = port_worlds.port_model(gnn["HEAT4"],
+                                       variables["HEAT4"]).to(cuda)
+        make_big_graph_train_step(
+            model, torch.optim.SGD(model.parameters(), lr=1e-3), loss_fcn,
+            True, mesh, augment=False)(
+            local_edges(port_worlds.host_graph(arrays), mesh), y.to(cuda),
+            torch.ones(2, device=cuda),
+            torch.Generator(device=cuda).manual_seed(0))
+    finally:
+        dist.destroy_process_group()
+    judged("HEAT4", {n: p.grad for n, p in model.named_parameters()})

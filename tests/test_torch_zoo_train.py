@@ -260,6 +260,7 @@ def test_loader_batches_equal_jax(cohort):
     cfg = _config(cohort, "unused", "hgt")
     data, _ = select_dataset(cfg["datasets"], cfg["datasets"]["train_path"],
                              "train")
+    padded = 0
     for kw in ({"node_capacity": 128, "edge_capacity": 256},
                {"node_capacity": 48, "edge_capacity": 160, "stacked": True}):
         ours = GraphLoader(data, 2, shuffle=True, seed=5, prefetch=0, **kw)
@@ -272,11 +273,13 @@ def test_loader_batches_equal_jax(cohort):
                                           theirs._make_batch(idxs_j))
             np.testing.assert_array_equal(lt, lj)
             np.testing.assert_array_equal(wt, wj)
+            padded += int((wt == 0).sum())
             for f in ("feat", "node_type", "node_graph", "node_mask", "src",
                       "dst", "esign", "sim", "edge_mask"):
                 np.testing.assert_array_equal(getattr(gt, f), getattr(gj, f),
                                               err_msg=f)
             assert gt.edges_sorted and gt.n_graphs == gj.n_graphs
+    assert padded == 2   # 5 slides in batches of 2: a tail of 1 each way
 
 
 @pytest.fixture(scope="module")

@@ -13,16 +13,15 @@ once per batch (`utils.to_torch`), index leaves as int64.
 """
 from __future__ import annotations
 
-from typing import Iterator, List, Optional, Sequence, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from .. import profiling
 from ..graph.typed_graph import TypedGraph, bucket_size
 from ..models.lattice import LatticeGraph
 from ..utils import to_torch
-from .loader import prefetched_batches
+from .loader import SlideBatches
 
 
 def slide_lattice_geometry(
@@ -155,7 +154,7 @@ def lattice_to_torch(g: LatticeGraph, device: torch.device) -> LatticeGraph:
                  else None) for a in g))
 
 
-class LatticeLoader:
+class LatticeLoader(SlideBatches):
     """Yields (LatticeGraph [B, N, k] on `device`, labels, weights); labels
     and weights stay numpy. Short tail batches repeat the first slide at
     weight 0, so every batch has one shape. The shuffle is
@@ -165,47 +164,15 @@ class LatticeLoader:
     def __init__(self, dataset, batch_size: int, k: int, node_capacity: int,
                  shuffle: bool = True, seed: int = 0, prefetch: int = 2,
                  device: Optional[torch.device] = None):
-        self.dataset = dataset
-        self.batch_size = batch_size
+        super().__init__(dataset, batch_size, shuffle, seed, prefetch, device)
         self.k = k
         self.node_capacity = node_capacity
-        self.shuffle = shuffle
-        self.rng = np.random.RandomState(seed)
-        self.prefetch = prefetch
-        self.device = torch.device("cpu") if device is None else device
 
-    def __len__(self):
-        return (len(self.dataset) + self.batch_size - 1) // self.batch_size
+    def _pack(self, graphs: List[TypedGraph], pad: int) -> LatticeGraph:
+        slides = [pack_slide(g, self.k, self.node_capacity)
+                  for g in graphs[:len(graphs) - pad]]
+        slides += [slides[0]] * pad    # the first slide packed once
+        return LatticeGraph(*[np.stack(p) for p in zip(*slides)])
 
-    def _make_batch(self, idxs: Sequence[int]):
-        """Host numpy batch of the dataset rows `idxs`."""
-        graphs, labels = [], []
-        for i in idxs:
-            with profiling.span("loader/read", step=int(i)):
-                g, y = self.dataset[i]
-            graphs.append(g)
-            labels.append(int(y))
-        with profiling.span("loader/pack"):
-            slides = [pack_slide(g, self.k, self.node_capacity)
-                      for g in graphs]
-            weights = [1.0] * len(slides)
-            while len(slides) < self.batch_size:
-                slides.append(slides[0])
-                labels.append(0)
-                weights.append(0.0)
-            g = LatticeGraph(*[np.stack(p) for p in zip(*slides)])
-        return g, np.asarray(labels, np.int32), np.asarray(weights, np.float32)
-
-    def _index_batches(self) -> List[List[int]]:
-        order = np.arange(len(self.dataset))
-        if self.shuffle:
-            self.rng.shuffle(order)
-        return [list(order[i:i + self.batch_size])
-                for i in range(0, len(order), self.batch_size)]
-
-    def __iter__(self) -> Iterator:
-        for g, labels, weights in prefetched_batches(
-                self._index_batches(), self._make_batch, self.prefetch):
-            with profiling.span("loader/to_device"):
-                g = lattice_to_torch(g, self.device)
-            yield g, labels, weights
+    def _to_device(self, g: LatticeGraph) -> LatticeGraph:
+        return lattice_to_torch(g, self.device)

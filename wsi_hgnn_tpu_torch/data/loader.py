@@ -5,12 +5,13 @@ repeat of the first slide), edges sorted by the dst-major segment key, on
 a background thread; each batch goes to the device once. The shuffle is
 np.random.RandomState(seed), the JAX loader's, so both packages visit the
 same batches in the same order and pack them array-equal.
+`SlideBatches` is the skeleton it shares with `LatticeLoader`.
 """
 from __future__ import annotations
 
 import queue
 import threading
-from typing import Iterator, List, Optional, Sequence, Tuple
+from typing import Iterator, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -86,39 +87,28 @@ def stack_graphs(graphs: Sequence[TypedGraph]) -> TypedGraph:
     return first.replace(**leaves)
 
 
-class GraphLoader:
-    """Yields (TypedGraph on `device`, labels, weights); labels and weights
-    stay numpy. Flat batches concatenate the slides into one graph at the
-    given (or bucketed) batch capacities; `stacked` batches re-pad every
-    slide to the shared PER-SLIDE capacities (required) and stack them on
-    a leading axis, for evaluations that run each slide on its own."""
+class SlideBatches:
+    """What both training loaders share: the shuffled index batches (the
+    JAX loader's np.random.RandomState(seed) order), the read loop, labels
+    and weights with short tails padded by a zero-weight repeat of the
+    first slide, and the prefetched iteration. A subclass packs the read
+    graphs with `_pack(graphs, pad)` (the last `pad` of them repeat the
+    first slide) and moves a packed batch to `self.device` with
+    `_to_device`."""
 
-    def __init__(self, dataset, batch_size: int, shuffle: bool = True,
-                 seed: int = 0, node_capacity: Optional[int] = None,
-                 edge_capacity: Optional[int] = None, bucket_base: int = 1024,
-                 prefetch: int = 2, sort_edges: bool = True,
-                 stacked: bool = False,
-                 device: Optional[torch.device] = None):
+    def __init__(self, dataset, batch_size: int, shuffle: bool, seed: int,
+                 prefetch: int, device: Optional[torch.device]):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.rng = np.random.RandomState(seed)
-        self.node_capacity = node_capacity
-        self.edge_capacity = edge_capacity
-        self.bucket_base = bucket_base
         self.prefetch = prefetch
-        self.sort_edges = sort_edges
-        self.stacked = stacked
         self.device = torch.device("cpu") if device is None else device
-        if stacked and (node_capacity is None or edge_capacity is None):
-            raise ValueError(
-                "stacked=True needs explicit per-slide node/edge capacities")
 
     def __len__(self):
         return (len(self.dataset) + self.batch_size - 1) // self.batch_size
 
-    def _make_batch(self, idxs: Sequence[int]
-                    ) -> Tuple[TypedGraph, np.ndarray, np.ndarray]:
+    def _make_batch(self, idxs: Sequence[int]):
         """Host numpy batch of the dataset rows `idxs`."""
         graphs: List[TypedGraph] = []
         labels: List[int] = []
@@ -127,25 +117,12 @@ class GraphLoader:
                 g, y = self.dataset[i]
             graphs.append(g)
             labels.append(int(y))
-        weights = [1.0] * len(graphs)
-        while len(graphs) < self.batch_size:
-            graphs.append(graphs[0])
-            labels.append(0)
-            weights.append(0.0)
+        pad = self.batch_size - len(graphs)
+        weights = [1.0] * len(graphs) + [0.0] * pad
+        graphs += [graphs[0]] * pad
         with profiling.span("loader/pack"):
-            if self.stacked:
-                padded = [repad_graph(g, self.node_capacity,
-                                      self.edge_capacity) for g in graphs]
-                if self.sort_edges:
-                    padded = [sort_graph_edges(g) for g in padded]
-                gb = stack_graphs(padded)
-            else:
-                gb = batch_graphs(graphs, node_capacity=self.node_capacity,
-                                  edge_capacity=self.edge_capacity,
-                                  bucket_base=self.bucket_base)
-                if self.sort_edges:
-                    gb = sort_graph_edges(gb)
-        return (gb, np.asarray(labels, np.int32),
+            batch = self._pack(graphs, pad)
+        return (batch, np.asarray(labels + [0] * pad, np.int32),
                 np.asarray(weights, np.float32))
 
     def _index_batches(self) -> List[List[int]]:
@@ -159,8 +136,47 @@ class GraphLoader:
         for g, labels, weights in prefetched_batches(
                 self._index_batches(), self._make_batch, self.prefetch):
             with profiling.span("loader/to_device"):
-                g = g.to_torch(self.device)
+                g = self._to_device(g)
             yield g, labels, weights
+
+
+class GraphLoader(SlideBatches):
+    """Yields (TypedGraph on `device`, labels, weights); labels and weights
+    stay numpy. Flat batches concatenate the slides into one graph at the
+    given (or bucketed) batch capacities; `stacked` batches re-pad every
+    slide to the shared PER-SLIDE capacities (required) and stack them on
+    a leading axis, for evaluations that run each slide on its own."""
+
+    def __init__(self, dataset, batch_size: int, shuffle: bool = True,
+                 seed: int = 0, node_capacity: Optional[int] = None,
+                 edge_capacity: Optional[int] = None, bucket_base: int = 1024,
+                 prefetch: int = 2, sort_edges: bool = True,
+                 stacked: bool = False,
+                 device: Optional[torch.device] = None):
+        super().__init__(dataset, batch_size, shuffle, seed, prefetch, device)
+        self.node_capacity = node_capacity
+        self.edge_capacity = edge_capacity
+        self.bucket_base = bucket_base
+        self.sort_edges = sort_edges
+        self.stacked = stacked
+        if stacked and (node_capacity is None or edge_capacity is None):
+            raise ValueError(
+                "stacked=True needs explicit per-slide node/edge capacities")
+
+    def _pack(self, graphs: List[TypedGraph], pad: int) -> TypedGraph:
+        if self.stacked:
+            padded = [repad_graph(g, self.node_capacity, self.edge_capacity)
+                      for g in graphs]
+            if self.sort_edges:
+                padded = [sort_graph_edges(g) for g in padded]
+            return stack_graphs(padded)
+        gb = batch_graphs(graphs, node_capacity=self.node_capacity,
+                          edge_capacity=self.edge_capacity,
+                          bucket_base=self.bucket_base)
+        return sort_graph_edges(gb) if self.sort_edges else gb
+
+    def _to_device(self, g: TypedGraph) -> TypedGraph:
+        return g.to_torch(self.device)
 
 
 def dataset_capacities(dataset, batch_size: int, bucket_base: int = 1024):

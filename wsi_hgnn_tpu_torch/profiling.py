@@ -426,6 +426,10 @@ def trace(log_dir: str, create_perfetto_link: bool = False) -> Iterator[None]:
     before = set(os.listdir(log_dir)) if os.path.isdir(log_dir) else set()
     with profile(activities=activities,
                  on_trace_ready=tensorboard_trace_handler(log_dir)):
+        if torch.cuda.is_available():
+            # a kernel of ours first: CUPTI can drop the first kernel it
+            # records, which would otherwise be the block's
+            torch.ones(1, device="cuda").sum().item()
         GLOBAL_TIMER.begin_session()
         with _torch_profiler.record_function(PREFIX + "trace"):
             yield
