@@ -249,9 +249,10 @@ def cohort(tmp_path_factory):
 
 @pytest.mark.parametrize("kind", ["graph", "lattice"])
 def test_loaders_record_read_pack_wait_and_to_device(cohort, kind):
-    """One epoch of 3 slides in batches of 2: 3 reads, 2 packs, 2 copies,
-    3 fetches (the two batches and the end), on the prefetch thread and
-    the consumer's."""
+    """One epoch of 3 slides in batches of 2: 3 reads on the pool's
+    threads (each taken once, ready or late), 2 packs on the prefetch
+    thread, 2 copies and 3 fetches (the two batches and the end) on the
+    consumer's."""
     ds = GraphDataset(str(cohort / "train.txt"), str(cohort / "normal.txt"),
                       "BRCA", "train")
     if kind == "graph":
@@ -270,10 +271,51 @@ def test_loaders_record_read_pack_wait_and_to_device(cohort, kind):
     assert snap["spans"]["loader/read"]["cpu_s"] > 0
     starved = snap["counters"].get("loader/starved", {"total": 0})["total"]
     assert 0 <= starved <= 3
+    takes = sum(snap["counters"].get(f"loader/read_{c}", {"total": 0})
+                ["total"] for c in ("ready", "late"))
+    assert takes == 3
     threads = {r["name"]: r["thread"] for r in GLOBAL_TIMER.records()}
-    assert threads["loader/read"] == threads["loader/pack"]
     assert threads["loader/wait"] == threads["loader/to_device"] \
-        == threading.get_ident() != threads["loader/read"]
+        == threading.get_ident() != threads["loader/pack"]
+    assert threads["loader/read"] not in (threads["loader/pack"],
+                                          threading.get_ident())
+
+
+def test_pool_reads_keep_the_loader_readers_inputs(cohort):
+    """Under a profiler every `loader/read` span closes on a pool thread,
+    one a slide read, with wall and CPU time (the inputs of
+    `loader.read_ms_per_slide` and `loader.read_cpu_share`), and each
+    take counts `loader/read_ready` or `loader/read_late` (those of
+    `loader.read_ready_share`): 3 slides, 2 epochs."""
+    ds = GraphDataset(str(cohort / "train.txt"), str(cohort / "normal.txt"),
+                      "BRCA", "train")
+    readers = {}
+
+    class Named:
+        def __len__(self):
+            return len(ds)
+
+        def __getitem__(self, i):
+            t = threading.current_thread()
+            readers[t.ident] = t.name
+            return ds[i]
+
+    loader = GraphLoader(Named(), 1, seed=0)
+    with profiler():
+        for _ in range(2):
+            assert len(list(loader)) == 3
+    snap = GLOBAL_TIMER.snapshot()
+    read = snap["spans"]["loader/read"]
+    assert read["count"] == 6 and read["host_s"] > 0 and read["cpu_s"] > 0
+    counters = snap["counters"]
+    ready = counters.get("loader/read_ready", {"total": 0, "calls": 0})
+    late = counters.get("loader/read_late", {"total": 0, "calls": 0})
+    assert ready["total"] + late["total"] == 6
+    assert ready["calls"] + late["calls"] == 6
+    threads = {r["thread"] for r in GLOBAL_TIMER.records()
+               if r["name"] == "loader/read"}
+    assert threads <= set(readers)
+    assert all(readers[t].startswith("slide-read") for t in threads)
 
 
 def _train_config(root, gnn):

@@ -16,7 +16,9 @@ Label extraction matches the reference byte for byte:
 """
 from __future__ import annotations
 
+import io
 import os
+import zipfile
 from pathlib import Path
 from typing import List, Optional, Tuple
 
@@ -60,14 +62,41 @@ def save_graph_npz(
     )
 
 
+def _npy_from_bytes(data: bytes) -> np.ndarray:
+    """The array of one whole `.npy` file's bytes, as np.load gives it
+    (no pickled objects). The array is a read-only view of `data`."""
+    f = io.BytesIO(data)
+    version = np.lib.format.read_magic(f)
+    if version in ((1, 0), (2, 0)):
+        header = (np.lib.format.read_array_header_1_0 if version == (1, 0)
+                  else np.lib.format.read_array_header_2_0)
+        shape, fortran_order, dtype = header(f)
+        if not dtype.hasobject:
+            count = int(np.prod(shape, dtype=np.int64))
+            arr = np.frombuffer(data, dtype, count=count, offset=f.tell())
+            if fortran_order:
+                return arr.reshape(shape[::-1]).transpose()
+            return arr.reshape(shape)
+    # the rarer layouts (a 3.0 header, an object array): numpy's own reader
+    return np.lib.format.read_array(io.BytesIO(data), allow_pickle=False)
+
+
 def load_graph_npz(path) -> TypedGraph:
-    with np.load(path) as z:
-        is_hetero = bool(z["is_hetero"])
+    """A slide's TypedGraph from its `.npz` (any that np.savez or
+    np.savez_compressed writes). Each member is inflated in one read:
+    np.load's 256 KiB pieces would take the interpreter lock back once a
+    piece, which costs a loader's read threads most under a busy step
+    loop."""
+    with zipfile.ZipFile(path) as zf:
+        def z(key):
+            return _npy_from_bytes(zf.read(key + ".npy"))
+
+        is_hetero = bool(z("is_hetero"))
         return from_arrays(
-            z["feat"], z["src"], z["dst"],
-            node_type=z["node_type"] if is_hetero else None,
-            esign=z["esign"], sim=z["sim"],
-            n_node_types=int(z["n_node_types"]) if is_hetero else 1,
+            z("feat"), z("src"), z("dst"),
+            node_type=z("node_type") if is_hetero else None,
+            esign=z("esign"), sim=z("sim"),
+            n_node_types=int(z("n_node_types")) if is_hetero else 1,
             add_self_loops=not is_hetero,
         )
 

@@ -2,15 +2,20 @@
 wsi_hgnn_tpu/data/loader.py): `GraphLoader` packs slides into bucketed
 batches of a fixed slide count (short tails padded with a zero-weight
 repeat of the first slide), edges sorted by the dst-major segment key, on
-a background thread; each batch goes to the device once. The shuffle is
+a background thread; each batch goes to the device once. Slides are read
+ahead on a small pool of threads. The shuffle is
 np.random.RandomState(seed), the JAX loader's, so both packages visit the
 same batches in the same order and pack them array-equal.
 `SlideBatches` is the skeleton it shares with `LatticeLoader`.
 """
 from __future__ import annotations
 
+import contextlib
+import os
 import queue
 import threading
+from collections import deque
+from concurrent.futures import ThreadPoolExecutor
 from typing import Iterator, List, Optional, Sequence
 
 import numpy as np
@@ -87,13 +92,76 @@ def stack_graphs(graphs: Sequence[TypedGraph]) -> TypedGraph:
     return first.replace(**leaves)
 
 
+# reader threads a loader runs at most: a slide's read is mostly zlib's
+# inflate, which runs without the interpreter lock, so reads overlap
+MAX_READERS = 4
+
+
+def reader_count(n_reads: int) -> int:
+    """Read threads for an epoch of `n_reads` slides: half the CPUs this
+    process may run on, at least 2 and at most MAX_READERS, and no more
+    than there are reads."""
+    cpus = len(os.sched_getaffinity(0))
+    return max(1, min(MAX_READERS, max(2, cpus // 2), n_reads))
+
+
+class ReadAhead:
+    """`read(i)` for every i of `order`, on `readers` threads, submitted
+    in that order and taken in it: at most `depth` reads are outstanding
+    (submitted and not yet taken), the one being waited for included.
+    `take` re-raises a read's exception; `close` cancels the reads not
+    started and joins the threads."""
+
+    def __init__(self, read, order: Sequence[int], depth: int, readers: int):
+        self._read = read
+        self._order = iter(order)
+        self._depth = depth
+        self._pending: deque = deque()
+        # reentrant: a collector that finalizes an abandoned epoch on the
+        # thread that holds it may call close() inside _fill
+        self._lock = threading.RLock()
+        self._closed = False
+        self._pool = ThreadPoolExecutor(readers,
+                                        thread_name_prefix="slide-read")
+        self._fill()
+
+    def _fill(self) -> None:
+        with self._lock:
+            while not self._closed and len(self._pending) < self._depth:
+                i = next(self._order, None)
+                if i is None:
+                    return
+                self._pending.append(self._pool.submit(self._read, i))
+
+    def take(self):
+        """The next read's result. While a profiler runs, counts
+        `loader/read_ready` if it had finished, else `loader/read_late`."""
+        with self._lock:
+            if self._closed:
+                raise RuntimeError("the slide reads were closed")
+            fut = self._pending.popleft()
+        profiling.count("loader/read_ready" if fut.done()
+                        else "loader/read_late")
+        item = fut.result()
+        self._fill()
+        return item
+
+    def close(self) -> None:
+        with self._lock:
+            self._closed = True
+            self._pending.clear()
+        self._pool.shutdown(wait=True, cancel_futures=True)
+
+
 class SlideBatches:
     """What both training loaders share: the shuffled index batches (the
-    JAX loader's np.random.RandomState(seed) order), the read loop, labels
-    and weights with short tails padded by a zero-weight repeat of the
-    first slide, and the prefetched iteration. A subclass packs the read
-    graphs with `_pack(graphs, pad)` (the last `pad` of them repeat the
-    first slide) and moves a packed batch to `self.device` with
+    JAX loader's np.random.RandomState(seed) order), the slide reads,
+    labels and weights with short tails padded by a zero-weight repeat of
+    the first slide, and the prefetched iteration. Each epoch reads its
+    slides in batch order on a `ReadAhead` pool, at most (prefetch + 1) x
+    batch_size + readers of them ahead of the pack. A subclass packs the
+    read graphs with `_pack(graphs, pad)` (the last `pad` of them repeat
+    the first slide) and moves a packed batch to `self.device` with
     `_to_device`."""
 
     def __init__(self, dataset, batch_size: int, shuffle: bool, seed: int,
@@ -108,13 +176,18 @@ class SlideBatches:
     def __len__(self):
         return (len(self.dataset) + self.batch_size - 1) // self.batch_size
 
-    def _make_batch(self, idxs: Sequence[int]):
-        """Host numpy batch of the dataset rows `idxs`."""
+    def _read(self, i: int):
+        with profiling.span("loader/read", step=int(i)):
+            return self.dataset[i]
+
+    def _make_batch(self, idxs: Sequence[int],
+                    reads: Optional[ReadAhead] = None):
+        """Host numpy batch of the dataset rows `idxs`, taken from `reads`
+        or, without, read here."""
         graphs: List[TypedGraph] = []
         labels: List[int] = []
         for i in idxs:
-            with profiling.span("loader/read", step=int(i)):
-                g, y = self.dataset[i]
+            g, y = self._read(i) if reads is None else reads.take()
             graphs.append(g)
             labels.append(int(y))
         pad = self.batch_size - len(graphs)
@@ -133,11 +206,22 @@ class SlideBatches:
                 for i in range(0, len(order), self.batch_size)]
 
     def __iter__(self) -> Iterator:
-        for g, labels, weights in prefetched_batches(
-                self._index_batches(), self._make_batch, self.prefetch):
-            with profiling.span("loader/to_device"):
-                g = self._to_device(g)
-            yield g, labels, weights
+        batches = self._index_batches()
+        order = [i for b in batches for i in b]
+        readers = reader_count(len(order))
+        reads = ReadAhead(self._read, order,
+                          (self.prefetch + 1) * self.batch_size + readers,
+                          readers)
+        try:
+            with contextlib.closing(prefetched_batches(
+                    batches, lambda idxs: self._make_batch(idxs, reads),
+                    self.prefetch)) as it:
+                for g, labels, weights in it:
+                    with profiling.span("loader/to_device"):
+                        g = self._to_device(g)
+                    yield g, labels, weights
+        finally:
+            reads.close()
 
 
 class GraphLoader(SlideBatches):
