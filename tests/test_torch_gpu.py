@@ -2229,6 +2229,61 @@ def test_train_mil_folds_on_card(cuda, tmp_path, kind, flags):
     assert kernels.launch_counts() == _counts()
 
 
+def test_train_mil_gigapath_folds_on_card(cuda, tmp_path, monkeypatch):
+    """`train_mil --model gigapath` through its CLI on the card, at the
+    published widths: 2 folds x 1 epoch over 12 seeded bags of 2048-8192
+    tiles x 1536 with `xy` grid cells (6 a class): finite fold summaries,
+    each fold's saved weights finite and moved from the seeded start, the
+    bf16 evaluation's probabilities within 0.05 of the plain f32
+    reference's (benchmark/reference/longnet.py) on the same weights, and
+    no hand-written kernel launched."""
+    from wsi_hgnn_tpu_torch import train_mil
+
+    monkeypatch.syspath_prepend(str(ROOT / "benchmark"))
+    from reference import longnet as ref
+
+    rng = np.random.RandomState(21)
+    rows = ["name,label"]
+    for i in range(12):
+        n = int(rng.randint(2048, 8193))
+        side = int(np.ceil(np.sqrt(n)))
+        cells = rng.choice(side * side, n, replace=False)
+        np.savez(tmp_path / f"bag{i}.npz", feat=(
+            rng.randn(n, 1536) + 0.5 * (i % 2)).astype(np.float32),
+            xy=np.stack([cells % side, cells // side], 1) + 100)
+        rows.append(f"bag{i},{i % 2}")
+    (tmp_path / "labels.csv").write_text("\n".join(rows) + "\n")
+    kernels.reset_launch_counts()
+    summary = train_mil.main(["--model", "gigapath", "--feats-dir",
+                              str(tmp_path), "--labels",
+                              str(tmp_path / "labels.csv"), "--folds", "2",
+                              "--epochs", "1", "--save-dir",
+                              str(tmp_path / "folds"), "--device", cuda.type])
+    assert all(np.isfinite(summary[k]) for k in ("acc_mean", "f1_mean",
+                                                 "auc_mean")), summary
+    assert kernels.launch_counts() == _counts()
+    bags, _, _, coords = train_mil.load_bags(str(tmp_path),
+                                             str(tmp_path / "labels.csv"))
+    pixels = train_mil.gigapath_coords(coords)
+    start = train_mil.make_gigapath(1536, 2, cuda, 0).state_dict()
+    for fold in range(2):
+        sd = torch.load(tmp_path / "folds" / f"gigapath_fold{fold}.pt")
+        assert all(torch.isfinite(v).all() for v in sd.values())
+        assert not torch.equal(sd["patch_embed.proj.weight"],
+                               start["patch_embed.proj.weight"])
+        model = train_mil.make_gigapath(1536, 2, cuda, 0)
+        model.load_state_dict(sd)
+        for i in (0, 1):
+            got = train_mil.gigapath_probs(model, bags[i], pixels[i], cuda)
+            with torch.no_grad():
+                want = torch.softmax(ref.logits(
+                    sd, torch.from_numpy(bags[i]).to(cuda),
+                    torch.from_numpy(pixels[i]).to(cuda), ref.ARCH),
+                    -1)[0].cpu().numpy()
+            assert abs(got.sum() - 1) < 1e-5
+            assert np.abs(got - want).max() < 0.05, (fold, i, got, want)
+
+
 def test_pretrain_simclr_and_extract_on_card(cuda, tmp_path):
     """tools.pretrain_simclr on the card (KimiaNet frozen) over 320 JPEG
     patches of 256 x 256 at its defaults (batch 64, so 128 views through
@@ -2417,3 +2472,52 @@ def test_sharded_steps_on_one_card_match_the_single_card_step(cuda,
     finally:
         dist.destroy_process_group()
     judged("HEAT4", {n: p.grad for n, p in model.named_parameters()})
+
+
+def test_gigapath_steps_on_card_match_the_f32_reference(cuda, monkeypatch):
+    """Prov-GigaPath's slide encoder at its published widths through
+    train_mil's gigapath step (bf16 autocast, fused AdamW) on one
+    8192-tile bag of the benchmark's cohort, three steps, against the
+    plain f32 reference's (benchmark/reference/longnet.py) from the same
+    seeded weights: grad_gap and change_gap, over the leaves the cell
+    compares, within the gigapath-train cell's limits (loss_gap is
+    printed: the cell reads it with no limit)."""
+    from wsi_hgnn_tpu_torch import train_mil
+
+    monkeypatch.syspath_prepend(str(ROOT / "benchmark"))
+    from common import Ctx
+    from reference import longnet as ref
+    from run import load_cell
+    from traffic import mil_epochs
+    from traffic.train_epochs import BETA1, compare
+
+    workload, cfg = load_cell("gigapath-train")
+    workload = copy.deepcopy(workload)
+    workload["params"].update(slides=1, min_tiles=8192, max_tiles=8192)
+    ctx = Ctx(cell="gigapath-train", workload=workload, config=cfg, seed=77,
+              seconds=0.0, trace=False, device=cuda, t_start=0.0)
+    arch = ref.arch_of(cfg)
+    feats, cells, labels, _ = mil_epochs.make_cohort(ctx, arch)
+    coords = train_mil.gigapath_coords(cells)
+    w = ref.make_weights(ref.spec(arch), 78, cuda)
+    model = train_mil.make_gigapath(arch["in_dim"], arch["n_classes"], cuda,
+                                    **mil_epochs.model_sizes(arch, cfg))
+    model.load_state_dict(w)
+    opt_cfg = {k: float(cfg["optimizer"][k])
+               for k in ("lr", "weight_decay", "layer_decay")}
+    opt = train_mil.gigapath_optimizer(model, cuda, **opt_cfg)
+    named = dict(model.named_parameters())
+    losses = []
+    for s in range(3):
+        losses.append(float(train_mil.gigapath_train_step(
+            model, opt, feats[0], coords[0], int(labels[0]), cuda)))
+        if s == 0:
+            adam1 = {f"params/{k}": opt.state[v]["exp_avg"] / (1 - BETA1)
+                     for k, v in named.items()}
+    after = {f"params/{k}": v.detach() for k, v in named.items()}
+    want = mil_epochs.reference_leaves(ref.reference_steps(
+        w, [(feats[0], coords[0], labels[0])] * 3, arch, opt_cfg, cuda))
+    gaps = compare(losses, adam1, after, {"params": w}, want)
+    print("gigapath bf16 against f32:", gaps)
+    for name, limit in workload["limits"].items():
+        assert gaps[name] <= limit, (name, gaps[name])

@@ -16,16 +16,32 @@ train_mil.py): the reference's k-fold mains behind one CLI.
     single-magnification bags (`--cell`), or, with `--nested-bags`, both
     levels are real: the tiler's two-magnification nested bags featurized
     by `--encoder` (random, kimia, efficientnet-b4), the `-1.jpeg`
-    thumbnail too where present.
+    thumbnail too where present;
+  * gigapath: Prov-GigaPath's LongNet slide encoder with a linear head
+    (models/mil/longnet.py) over each bag's tiles at their coordinates
+    (the bags' `xy` grid cells, times the 256-px tile size: the model
+    takes pixels), one slide a step: AdamW (betas 0.9, 0.999, --weight-decay
+    0.05 by default) at a base --lr of 2e-3 by default with layer-wise
+    rate decay 0.95 from the head down (GigaPath's fine-tuning settings as
+    read here), the same cosine LR, CE; bf16 autocast on the card (f32
+    weights, AdamW state, LayerNorms and softmax statistics), f32 on the
+    CPU; weights from torch's initialisers at --seed
+    (`LongNetViT.load_slide_encoder` takes the published
+    slide_encoder.pth); `--save-dir` writes each fold's torch state dict,
+    no JAX pickle. Each step is the `train/step` span.
 
   python -m wsi_hgnn_tpu_torch.train_mil --model dsmil --feats-dir bags/ \\
       --labels labels.csv --folds 5 --epochs 50 [--remix-mode cov]
   python -m wsi_hgnn_tpu_torch.train_mil --model gtn ... [--device cpu]
   python -m wsi_hgnn_tpu_torch.train_mil --model h2mil --nested-bags \\
       --encoder kimia --feats-dir tiled/ --labels labels.csv
+  python -m wsi_hgnn_tpu_torch.train_mil --model gigapath --feats-dir bags/ \\
+      --labels labels.csv
 
 Bags are `.npy` [N, D] files or graph `.npz` files (their `feat`; an `xy`
-[N, 2] of tile coordinates feeds gtn, else a square raster grid).
+[N, 2] of tile grid cells (col, row), as the tiler names its tiles
+`{col}_{row}.jpeg` and pretrain_simclr's extraction writes them, feeds
+gtn, h2mil and gigapath, else a square raster grid; gigapath needs it).
 Labels come from a `name,label` CSV. The folds, the epoch order and the
 ReMix draws come from np.random.RandomState(--seed) as in JAX; the
 weights are drawn by convert.init_flax_like_(--seed) with flax's
@@ -46,18 +62,23 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from . import convert
+from . import convert, profiling
 from .graph.typed_graph import bucket_size
-from .models.mil import (ABMIL, DSMIL, H2MIL, GraphTransformer,
+from .models.mil import (ABMIL, DSMIL, H2MIL, GraphTransformer, LongNetViT,
                          mix_the_bag_aug, pad_bag, reduce_bag,
                          spatial_adjacency)
 from .models.mil.h2mil import (build_tree_graph, build_tree_graph_levels,
                                fill_dead_grads, scan_nested_bag,
                                tree_to_torch)
+from .models.mil.longnet import param_groups
 from .train.metrics import accuracy, metrics
 from .utils import resolve_device, set_cuda_numerics
 
 ETA_MIN = 5e-6
+# --lr and --weight-decay when not given: gigapath's AdamW, else Adam's
+HYPER = {"gigapath": {"lr": 2e-3, "weight_decay": 0.05}}
+HYPER_DEFAULT = {"lr": 2e-4, "weight_decay": 5e-3}
+GIGAPATH_LAYER_DECAY = 0.95
 
 
 def read_labels_csv(labels_csv: str) -> Dict[str, int]:
@@ -179,9 +200,56 @@ def _init(model: torch.nn.Module, seed: int,
     return convert.load_flax_variables(model, init_variables)
 
 
+def hyper(args, key: str) -> float:
+    """--lr or --weight-decay as given, else the model's default."""
+    value = getattr(args, key)
+    if value is not None:
+        return value
+    return HYPER.get(args.model, HYPER_DEFAULT)[key]
+
+
 def _set_lr(opt: torch.optim.Optimizer, lr: float) -> None:
+    """`lr` on every group, times the group's `lr_scale` where it has one."""
     for group in opt.param_groups:
-        group["lr"] = lr
+        group["lr"] = lr * group.get("lr_scale", 1.0)
+
+
+def run_epochs(args, rng, n_train: int, opt, step,
+               lr_of: Optional[Callable[[int], float]] = None) -> None:
+    """--epochs epochs over a fold's n_train training bags, each in the
+    order of rng.permutation; step(j) steps the j-th; lr_of(epoch), when
+    given, sets the epoch's rate."""
+    for epoch in range(args.epochs):
+        if lr_of is not None:
+            _set_lr(opt, lr_of(epoch))
+        for j in rng.permutation(n_train):
+            step(j)
+
+
+def run_folds(args, labels, name: str, fit, probs, save) -> Dict:
+    """The k folds every model runs: the stratified split, a fold with an
+    empty test split skipped, fit(train_idx) -> a trained model,
+    probs(model, i) -> bag i's class probabilities, the fold's metrics,
+    save(model, fold) under --save-dir; the summary."""
+    fold_metrics = []
+    for fi, (train_idx, val_idx, test_idx) in enumerate(
+            stratified_kfold_split(labels, args.folds)):
+        print(f"fold {fi}: {len(train_idx)} train / {len(val_idx)} val / "
+              f"{len(test_idx)} test")
+        if len(test_idx) == 0:
+            print(f"fold {fi}: empty test split, skipping")
+            fold_metrics.append((float("nan"),) * 3)
+            continue
+        model = fit(train_idx)
+        model.eval()
+        with torch.no_grad():
+            p = np.stack([probs(model, i) for i in test_idx])
+        acc, f1, aucv = _fold_metrics(p, labels[test_idx], args.num_classes)
+        fold_metrics.append((acc, f1, aucv))
+        print(f"fold {fi}: acc {acc:.4f} f1 {f1:.4f} auc {aucv:.4f}")
+        if args.save_dir:
+            save(model, fi)
+    return summarize(name, fold_metrics)
 
 
 def _fold_metrics(probs, ys, num_classes):
@@ -222,7 +290,6 @@ def run_bag_models(args, bags, labels, init_variables: Optional[Dict] = None):
     seeded init of every fold."""
     dev = resolve_device(args.device)
     rng = np.random.RandomState(args.seed)
-    folds = stratified_kfold_split(labels, args.folds)
     d = int(bags[0].shape[1])
     cls = ABMIL if args.model == "abmil" else DSMIL
     # capacity covers the untouched test bags and the augmented training
@@ -239,15 +306,9 @@ def run_bag_models(args, bags, labels, init_variables: Optional[Dict] = None):
         f, m = pad_bag(feats, capacity=cap)
         return torch.from_numpy(f).to(dev), torch.from_numpy(m).to(dev)
 
-    fold_metrics = []
-    for fi in range(args.folds):
-        train_idx, val_idx, test_idx = folds[fi]
-        print(f"fold {fi}: {len(train_idx)} train / {len(val_idx)} val / "
-              f"{len(test_idx)} test")
-        if len(test_idx) == 0:
-            print(f"fold {fi}: empty test split, skipping")
-            fold_metrics.append((float("nan"),) * 3)
-            continue
+    lr = hyper(args, "lr")
+
+    def fit(train_idx):
         shifts = None
         if args.remix_mode:
             reduced = [reduce_bag(bags[i], args.num_prototypes, device=dev)
@@ -256,42 +317,37 @@ def run_bag_models(args, bags, labels, init_variables: Optional[Dict] = None):
             shifts = [r[1] for r in reduced]
         else:
             train_bags = [bags[i] for i in train_idx]
-
         model = _init(cls(args.num_classes, d), args.seed,
                       init_variables).to(dev)
-        opt = torch.optim.Adam(model.parameters(), lr=args.lr,
-                               betas=(0.5, 0.9), eps=1e-8,
-                               weight_decay=args.weight_decay)
-        lr_of = cosine_epoch_schedule(args.lr, args.epochs)
-        for epoch in range(args.epochs):
-            _set_lr(opt, lr_of(epoch))
-            for j in rng.permutation(len(train_idx)):
-                i = train_idx[j]
-                feats = train_bags[j]
-                if args.remix_mode:
-                    feats = mix_the_bag_aug(
-                        feats, j, train_bags, labels[train_idx],
-                        args.remix_mode, args.remix_rate,
-                        semantic_shifts=shifts, rng=rng)
-                bag_train_step(model, opt, args.model, args.num_classes,
-                               *on_dev(feats), int(labels[i]))
+        opt = torch.optim.Adam(model.parameters(), lr=lr, betas=(0.5, 0.9),
+                               eps=1e-8,
+                               weight_decay=hyper(args, "weight_decay"))
 
-        model.eval()
-        with torch.no_grad():
-            probs = np.stack([torch.sigmoid(bag_logits(
-                model, args.model, *on_dev(bags[i]))[0])[0].cpu().numpy()
-                for i in test_idx])
-        ys = labels[test_idx]
-        acc, f1, aucv = _fold_metrics(probs, ys, args.num_classes)
-        fold_metrics.append((acc, f1, aucv))
-        print(f"fold {fi}: acc {acc:.4f} f1 {f1:.4f} auc {aucv:.4f}")
-        if args.save_dir:
-            save_fold_params(args.save_dir, args.model, fi,
-                             convert.to_flax_variables(model),
-                             dict(model=args.model,
-                                  num_classes=args.num_classes, in_dim=d,
-                                  cap=int(cap)))
-    return summarize(args.model, fold_metrics)
+        def step(j):
+            feats = train_bags[j]
+            if args.remix_mode:
+                feats = mix_the_bag_aug(
+                    feats, j, train_bags, labels[train_idx],
+                    args.remix_mode, args.remix_rate,
+                    semantic_shifts=shifts, rng=rng)
+            bag_train_step(model, opt, args.model, args.num_classes,
+                           *on_dev(feats), int(labels[train_idx[j]]))
+
+        run_epochs(args, rng, len(train_idx), opt, step,
+                   cosine_epoch_schedule(lr, args.epochs))
+        return model
+
+    def probs(model, i):
+        return torch.sigmoid(bag_logits(
+            model, args.model, *on_dev(bags[i]))[0])[0].cpu().numpy()
+
+    def save(model, fi):
+        save_fold_params(args.save_dir, args.model, fi,
+                         convert.to_flax_variables(model),
+                         dict(model=args.model, num_classes=args.num_classes,
+                              in_dim=d, cap=int(cap)))
+
+    return run_folds(args, labels, args.model, fit, probs, save)
 
 
 # ------------------------------------------------------------------------- #
@@ -319,7 +375,6 @@ def gtn_train_step(model, opt, feats, adj, mask, label: int) -> torch.Tensor:
 def run_gtn(args, bags, labels, coords, init_variables: Optional[Dict] = None):
     dev = resolve_device(args.device)
     rng = np.random.RandomState(args.seed)
-    folds = stratified_kfold_split(labels, args.folds)
     d = int(bags[0].shape[1])
     cap = bucket_size(max(len(b) for b in bags), base=64)
     # the 8-neighbour edge list of each slide, built once
@@ -334,42 +389,34 @@ def run_gtn(args, bags, labels, coords, init_variables: Optional[Dict] = None):
                 dense_adjacency(edge_lists[i], cap, dev),
                 torch.from_numpy(m[None]).to(dev))
 
-    fold_metrics = []
-    for fi in range(args.folds):
-        train_idx, val_idx, test_idx = folds[fi]
-        print(f"fold {fi}: {len(train_idx)} train / {len(val_idx)} val / "
-              f"{len(test_idx)} test")
-        if len(test_idx) == 0:
-            print(f"fold {fi}: empty test split, skipping")
-            fold_metrics.append((float("nan"),) * 3)
-            continue
+    lr = hyper(args, "lr")
+
+    def fit(train_idx):
         model = _init(GraphTransformer(
             n_class=args.num_classes, in_dim=d, embed_dim=args.hidden,
             node_cluster_num=args.clusters), args.seed, init_variables).to(dev)
-        opt = torch.optim.Adam(model.parameters(), lr=args.lr, eps=1e-8,
+        opt = torch.optim.Adam(model.parameters(), lr=lr, eps=1e-8,
                                weight_decay=5e-4)
-        lr_of = cosine_epoch_schedule(args.lr, args.epochs)
-        for epoch in range(args.epochs):
-            _set_lr(opt, lr_of(epoch))
-            for j in rng.permutation(len(train_idx)):
-                i = train_idx[j]
-                gtn_train_step(model, opt, *make_inputs(i), int(labels[i]))
-        model.eval()
-        with torch.no_grad():
-            probs = np.stack([torch.softmax(model(*make_inputs(i))[0], -1
-                                            )[0].cpu().numpy()
-                              for i in test_idx])
-        ys = labels[test_idx]
-        acc, f1, aucv = _fold_metrics(probs, ys, args.num_classes)
-        fold_metrics.append((acc, f1, aucv))
-        print(f"fold {fi}: acc {acc:.4f} f1 {f1:.4f} auc {aucv:.4f}")
-        if args.save_dir:
-            save_fold_params(args.save_dir, "gtn", fi,
-                             convert.to_flax_variables(model),
-                             dict(model="gtn", num_classes=args.num_classes,
-                                  hidden=args.hidden, clusters=args.clusters,
-                                  in_dim=d, cap=int(cap)))
-    return summarize("gtn", fold_metrics)
+
+        def step(j):
+            i = train_idx[j]
+            gtn_train_step(model, opt, *make_inputs(i), int(labels[i]))
+
+        run_epochs(args, rng, len(train_idx), opt, step,
+                   cosine_epoch_schedule(lr, args.epochs))
+        return model
+
+    def probs(model, i):
+        return torch.softmax(model(*make_inputs(i))[0], -1)[0].cpu().numpy()
+
+    def save(model, fi):
+        save_fold_params(args.save_dir, "gtn", fi,
+                         convert.to_flax_variables(model),
+                         dict(model="gtn", num_classes=args.num_classes,
+                              hidden=args.hidden, clusters=args.clusters,
+                              in_dim=d, cap=int(cap)))
+
+    return run_folds(args, labels, "gtn", fit, probs, save)
 
 
 # ------------------------------------------------------------------------- #
@@ -485,56 +532,163 @@ def run_h2mil(args, bags, labels, coords,
         trees = synthetic_trees(bags, coords, args.cell)
     in_dim = int(trees[0].feats.shape[1])
     on_dev = [tree_to_torch(t, dev) for t in trees]
-    folds = stratified_kfold_split(labels, args.folds)
     gen = torch.Generator(device=dev).manual_seed(args.seed + 1)
 
-    fold_metrics = []
-    for fi in range(args.folds):
-        train_idx, val_idx, test_idx = folds[fi]
-        print(f"fold {fi}: {len(train_idx)} train / {len(val_idx)} val / "
-              f"{len(test_idx)} test")
-        if len(test_idx) == 0:
-            print(f"fold {fi}: empty test split, skipping")
-            fold_metrics.append((float("nan"),) * 3)
-            continue
+    def fit(train_idx):
         model = _init(H2MIL(in_dim, args.hidden, args.num_classes,
                             k1=args.k1, k2=args.k2, dropout=args.dropout),
                       args.seed, init_variables).to(dev)
-        opt = torch.optim.Adam(model.parameters(), lr=args.lr, eps=1e-8,
-                               weight_decay=5e-4)
-        for epoch in range(args.epochs):
-            for j in rng.permutation(len(train_idx)):
-                i = train_idx[j]
-                h2mil_train_step(model, opt, on_dev[i], int(labels[i]), gen)
-        model.eval()
-        with torch.no_grad():
-            probs = np.stack([torch.softmax(model(on_dev[i]), -1)[0]
-                              .cpu().numpy() for i in test_idx])
-        ys = labels[test_idx]
-        acc, f1, aucv = _fold_metrics(probs, ys, args.num_classes)
-        fold_metrics.append((acc, f1, aucv))
-        print(f"fold {fi}: acc {acc:.4f} f1 {f1:.4f} auc {aucv:.4f}")
-        if args.save_dir:
-            save_fold_params(args.save_dir, "h2mil", fi,
-                             convert.to_flax_variables(model),
-                             dict(model="h2mil", num_classes=args.num_classes,
-                                  hidden=args.hidden, k1=args.k1, k2=args.k2,
-                                  in_dim=in_dim))
-    return summarize("h2mil", fold_metrics)
+        opt = torch.optim.Adam(model.parameters(), lr=hyper(args, "lr"),
+                               eps=1e-8, weight_decay=5e-4)
+
+        def step(j):
+            i = train_idx[j]
+            h2mil_train_step(model, opt, on_dev[i], int(labels[i]), gen)
+
+        run_epochs(args, rng, len(train_idx), opt, step)
+        return model
+
+    def probs(model, i):
+        return torch.softmax(model(on_dev[i]), -1)[0].cpu().numpy()
+
+    def save(model, fi):
+        save_fold_params(args.save_dir, "h2mil", fi,
+                         convert.to_flax_variables(model),
+                         dict(model="h2mil", num_classes=args.num_classes,
+                              hidden=args.hidden, k1=args.k1, k2=args.k2,
+                              in_dim=in_dim))
+
+    return run_folds(args, labels, "h2mil", fit, probs, save)
+
+
+# ------------------------------------------------------------------------- #
+def make_gigapath(in_dim: int, num_classes: int, device, seed: int = 0,
+                  **arch) -> LongNetViT:
+    """LongNetViT (`arch`: its sizes, the published ones by default) with
+    torch's initialisers at `seed` and a N(0, 0.02^2) CLS token."""
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        model = LongNetViT(in_dim=in_dim, n_classes=num_classes, **arch)
+        torch.nn.init.normal_(model.cls_token, std=0.02)
+    return model.to(device)
+
+
+def gigapath_optimizer(model: LongNetViT, device, lr: float = 2e-3,
+                       weight_decay: float = 0.05,
+                       layer_decay: float = GIGAPATH_LAYER_DECAY
+                       ) -> torch.optim.Optimizer:
+    """AdamW over the layer-wise groups (each group's `lr_scale` kept for
+    the schedule); the fused kernel on the card."""
+    groups = param_groups(model, lr, weight_decay, layer_decay)
+    return torch.optim.AdamW(groups, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                             fused=torch.device(device).type == "cuda")
+
+
+def _autocast(device):
+    return torch.autocast("cuda", dtype=torch.bfloat16,
+                          enabled=torch.device(device).type == "cuda")
+
+
+def gigapath_train_step(model, opt, feats, coords, label: int,
+                        device) -> torch.Tensor:
+    """One slide: upload its tile features [N, D] (f32) and pixel
+    coordinates [N, 2] (host arrays), CE of the logits under bf16 autocast
+    on the card, backward, AdamW; all of it the `train/step` span."""
+    model.train()
+    with profiling.span("train/step", device=device):
+        x = torch.as_tensor(feats).to(device, non_blocking=True)
+        c = torch.as_tensor(coords).to(device, non_blocking=True)
+        with _autocast(device):
+            logits = model(x, c)
+        loss = -F.log_softmax(logits.float(), -1)[0, label]
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        opt.step()
+    return loss.detach()
+
+
+def gigapath_probs(model, feats, coords, device) -> np.ndarray:
+    """softmax of one slide's logits, [num_classes]."""
+    model.eval()
+    with torch.no_grad(), _autocast(device):
+        logits = model(torch.as_tensor(feats).to(device),
+                       torch.as_tensor(coords).to(device))
+    return torch.softmax(logits.float(), -1)[0].cpu().numpy()
+
+
+def gigapath_coords(coords, ngrids: int = 1000,
+                    tile_size: int = 256) -> List[np.ndarray]:
+    """Each bag's `xy` grid cells (col, row) as LongNetViT's pixel
+    coordinates (x tile_size). Refuses a bag without `xy`, cells off the
+    ngrids x ngrids grid, and coordinates that are already pixels (every
+    one a multiple of tile_size, some not 0)."""
+    out = []
+    for i, xy in enumerate(coords):
+        if xy is None:
+            raise SystemExit("gigapath needs each bag's tile coordinates "
+                             f"(`xy` in its .npz); bag {i} has none")
+        xy = np.asarray(xy, np.int64)
+        if xy.size and (xy.min() < 0 or xy.max() >= ngrids):
+            raise SystemExit(f"bag {i}: `xy` outside the [0, {ngrids}) tile "
+                             "grid; `xy` holds grid cells (col, row), not "
+                             "pixels")
+        if xy.size and xy.any() and not (xy % tile_size).any():
+            raise SystemExit(f"bag {i}: every `xy` is a multiple of "
+                             f"{tile_size}: pixels, where `xy` holds grid "
+                             "cells (col, row)")
+        out.append(xy * tile_size)
+    return out
+
+
+def run_gigapath(args, bags, labels, coords):
+    """gigapath k-fold: one slide a step, the folds, order and metrics of
+    the other models."""
+    dev = resolve_device(args.device)
+    pixels = gigapath_coords(coords)
+    rng = np.random.RandomState(args.seed)
+    d = int(bags[0].shape[1])
+    lr = hyper(args, "lr")
+
+    def fit(train_idx):
+        model = make_gigapath(d, args.num_classes, dev, args.seed)
+        opt = gigapath_optimizer(model, dev, lr, hyper(args, "weight_decay"))
+
+        def step(j):
+            i = train_idx[j]
+            gigapath_train_step(model, opt, bags[i], pixels[i],
+                                int(labels[i]), dev)
+
+        run_epochs(args, rng, len(train_idx), opt, step,
+                   cosine_epoch_schedule(lr, args.epochs))
+        return model
+
+    def probs(model, i):
+        return gigapath_probs(model, bags[i], pixels[i], dev)
+
+    def save(model, fi):
+        os.makedirs(args.save_dir, exist_ok=True)
+        torch.save(model.state_dict(),
+                   os.path.join(args.save_dir, f"gigapath_fold{fi}.pt"))
+
+    return run_folds(args, labels, "gigapath", fit, probs, save)
 
 
 # ------------------------------------------------------------------------- #
 def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--model", choices=["abmil", "dsmil", "gtn", "h2mil"],
+    ap.add_argument("--model",
+                    choices=["abmil", "dsmil", "gtn", "h2mil", "gigapath"],
                     default="dsmil")
     ap.add_argument("--feats-dir", required=True)
     ap.add_argument("--labels", required=True, help="CSV name,label")
     ap.add_argument("--folds", type=int, default=5)
     ap.add_argument("--epochs", type=int, default=50)
-    ap.add_argument("--lr", type=float, default=2e-4)
-    ap.add_argument("--weight-decay", type=float, default=5e-3,
-                    help="abmil/dsmil Adam L2")
+    ap.add_argument("--lr", type=float, default=None,
+                    help="base rate (default 2e-4; gigapath 2e-3)")
+    ap.add_argument("--weight-decay", type=float, default=None,
+                    help="abmil/dsmil Adam L2 (default 5e-3) or gigapath "
+                         "AdamW decay (default 0.05); gtn and h2mil fix "
+                         "theirs at 5e-4")
     ap.add_argument("--num-classes", type=int, default=2)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--hidden", type=int, default=64)
@@ -565,6 +719,8 @@ def parser() -> argparse.ArgumentParser:
 
 def main(argv=None):
     args = parser().parse_args(argv)
+    if args.weight_decay is not None and args.model in ("gtn", "h2mil"):
+        raise SystemExit(f"--weight-decay: {args.model}'s is fixed at 5e-4")
     if resolve_device(args.device).type == "cuda":
         set_cuda_numerics()
     if args.nested_bags:
@@ -579,6 +735,8 @@ def main(argv=None):
         return run_bag_models(args, bags, labels)
     if args.model == "gtn":
         return run_gtn(args, bags, labels, coords)
+    if args.model == "gigapath":
+        return run_gigapath(args, bags, labels, coords)
     return run_h2mil(args, bags, labels, coords)
 
 
